@@ -1,0 +1,331 @@
+"""The expansion step — candidate bitmaps, lowest-untried-bit extraction,
+child emission, match counting — behind the step-backend seam.
+
+One expansion step, for every popped lane: extract the lowest untried
+candidate bit ``v``, extend the mapping, build the child's candidate
+bitmap ``dom[pos+1] ∧ ¬used' ∧ ⋀ adj_rows(mapped parents)`` (the paper's
+check-consistency-before-spawning rule, §3.1), and flag matches at full
+depth.  The step flattens all ``V·expand_width`` lanes into one batch, so a
+kernel sees one launch of ``V·expand_width`` blocks.  A port of the dense
+half of ``repro.core.extend``; the backend names are ``repro``'s:
+
+* ``"jnp"`` — :class:`JnpStepBackend`, plain PyTorch ops; with
+  ``EngineConfig.use_pallas`` the candidate AND goes through the
+  ``candidate_mask`` kernel (K2).
+* ``"pallas"`` — :class:`PallasStepBackend`, the fused ``extend_step``
+  kernel (K1): extraction, the AND-tree and match flagging in one launch.
+
+Both are bit-identical on every :class:`StepLanes` field the engine
+consumes.  On CPU tensors the kernels run their plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Protocol, Tuple, TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from repro_torch.core import frontier
+from repro_torch.core.frontier import EngineState
+from repro_torch.core.graph import WORD_BITS
+from repro_torch.core.plan import SearchPlan
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import lowest_bit
+
+if TYPE_CHECKING:  # engine imports extend
+    from repro_torch.core.engine import EngineConfig
+
+STEP_BACKENDS = ("jnp", "pallas")
+
+# step backends of ``repro`` that a later slice of the port brings, with the
+# ROADMAP item that does
+LATER_STEP_BACKENDS = {
+    "csr": "ROADMAP Queue 1 item 7 (sparse path)",
+    "auto": "ROADMAP Queue 1 item 7 (sparse path)",
+    "partitioned": "ROADMAP Queue 1 item 9 (out-of-core)",
+}
+
+
+class PlanArrays(NamedTuple):
+    """Device-resident static plan arrays (see SearchPlan).
+
+    ``rows`` is the flattened adjacency with the all-ones neutral row
+    appended (what the kernels take); ``adj_bits`` is a view of it, so the
+    target is on the device once."""
+
+    order_valid: torch.Tensor  # [p_pad] bool (True for real positions)
+    parent_pos: torch.Tensor  # [p_pad, mp] int32
+    parent_dir: torch.Tensor  # [p_pad, mp] int32
+    parent_elab: torch.Tensor  # [p_pad, mp] int32
+    dom_bits: torch.Tensor  # [p_pad, w] int32
+    adj_bits: torch.Tensor  # [n_elab, 2, n_t, w] int32, a view of rows[:-1]
+    rows: torch.Tensor  # [n_elab * 2 * n_t + 1, w] int32
+    n_p: int  # actual pattern size
+
+
+def bits_to_tensor(bits: np.ndarray, device) -> torch.Tensor:
+    """A uint32 bitmap array as an int32 tensor with the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(bits, dtype=np.uint32).view(np.int32)).to(device)
+
+
+def upload_rows(adj_bits: np.ndarray, device) -> torch.Tensor:
+    """The kernels' flattened adjacency (``[n_elab * 2 * n_t + 1, w]``,
+    neutral row last) on ``device``, from ``[n_elab, 2, n_t, w]`` bitmaps."""
+    return kops.flatten_adj_rows(bits_to_tensor(adj_bits, device))
+
+
+def make_plan_arrays(plan: SearchPlan, device, rows: Optional[torch.Tensor] = None) -> PlanArrays:
+    """Upload ``plan``.  ``rows`` optionally supplies an already uploaded
+    adjacency (:func:`upload_rows` of ``plan.adj_bits``), the dominant
+    transfer, so plans of one target share one copy."""
+    if rows is None:
+        rows = upload_rows(plan.adj_bits, device)
+
+    def i32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(device)
+
+    return PlanArrays(
+        order_valid=torch.from_numpy(plan.order >= 0).to(device),
+        parent_pos=i32(plan.parent_pos),
+        parent_dir=i32(plan.parent_dir),
+        parent_elab=i32(plan.parent_elab),
+        dom_bits=bits_to_tensor(plan.dom_bits, device),
+        adj_bits=rows[:-1].view(plan.adj_bits.shape),
+        rows=rows,
+        n_p=plan.n_p,
+    )
+
+
+# ---------------------------------------------------------------------------
+# bit helpers (batched over lanes; repro vmaps the one-lane forms)
+# ---------------------------------------------------------------------------
+
+def pop_lowest_bit(cand: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Extract the lowest set bit of each row of a ``[B, W]`` bitmap.
+
+    Returns ``(valid, v, cand_without_v)``; ``v`` is the global bit index.
+    """
+    w = cand.shape[1]
+    valid, widx, v, lowbit = lowest_bit(cand)
+    sel = (torch.arange(w, device=cand.device)[None, :] == widx[:, None]) & valid[:, None]
+    return valid, v, cand ^ torch.where(sel, lowbit[:, None], 0)
+
+
+def bit_row(v: torch.Tensor, w: int) -> torch.Tensor:
+    """One-hot ``[B, w]`` bitmaps with bit ``v[b]`` set (``v >= 0``)."""
+    bit = torch.ones_like(v) << (v % WORD_BITS)
+    hit = torch.arange(w, device=v.device)[None, :] == (v // WORD_BITS)[:, None]
+    return torch.where(hit, bit[:, None], 0)
+
+
+def compute_cand(
+    plan: PlanArrays, pos: torch.Tensor, map_: torch.Tensor, used: torch.Tensor
+) -> torch.Tensor:
+    """Candidate bitmaps ``[B, W]`` for order positions ``pos`` given the
+    mappings and used-bitmaps, in plain PyTorch:
+    ``dom[pos] ∧ ¬used ∧ ⋀_parents adj_bits[elab, dir, mapped_parent]``."""
+    n_t = plan.adj_bits.shape[2]
+    safe_pos = pos.clamp(0, plan.dom_bits.shape[0] - 1).long()
+    cand = plan.dom_bits[safe_pos] & ~used
+    pp, pd, pl = (a[safe_pos] for a in (plan.parent_pos, plan.parent_dir, plan.parent_elab))
+    for j in range(pp.shape[1]):
+        real = pp[:, j] >= 0
+        t = torch.where(real, map_.gather(1, pp[:, j:j + 1].clamp_min(0).long())[:, 0], 0)
+        row = plan.adj_bits[pl[:, j].long(), pd[:, j].long(), t.clamp(0, n_t - 1).long()]
+        cand = torch.where(real[:, None], cand & row, cand)
+    return cand
+
+
+def _extend_payload(depth, map_, used, valid, v, p_pad, w):
+    """``(map2, used2)``: the child's mapping (``v`` at position ``depth``)
+    and used-bitmap (``used ∨ bit(v)``), unchanged on invalid lanes."""
+    col = torch.arange(p_pad, device=depth.device)[None, :] == depth.clamp(0, p_pad - 1)[:, None]
+    map2 = torch.where(valid[:, None] & col, v[:, None], map_)
+    used2 = torch.where(valid[:, None], used | bit_row(v.clamp_min(0), w), used)
+    return map2, used2
+
+
+# ---------------------------------------------------------------------------
+# the step-backend seam
+# ---------------------------------------------------------------------------
+
+class StepLanes(NamedTuple):
+    """Everything one expansion produces per flattened lane ``[B = V·E]``.
+
+    ``v`` is informational (-1 or unspecified on invalid lanes; every
+    consumer gates on ``valid``).
+    """
+
+    valid: torch.Tensor  # [B] bool — lane had an untried candidate
+    v: torch.Tensor  # [B] int32 — extracted target node
+    is_match: torch.Tensor  # [B] bool — extension completed the pattern
+    has_child: torch.Tensor  # [B] bool — child has a non-empty candidate set
+    cand2: torch.Tensor  # [B, W] int32 — parent candidates minus v
+    map2: torch.Tensor  # [B, P] int32 — mapping extended with v
+    used2: torch.Tensor  # [B, W] int32 — used-bitmap with v set
+    child_cand: torch.Tensor  # [B, W] int32 — zeroed unless a child is wanted
+
+
+class StepBackend(Protocol):
+    """One expansion over a flat batch of popped lanes."""
+
+    name: str
+
+    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+        ...
+
+
+class JnpStepBackend:
+    """Plain PyTorch step (``repro``'s loose-ops reference backend); with
+    ``cfg.use_pallas`` the candidate AND runs the ``candidate_mask`` kernel."""
+
+    name = "jnp"
+
+    def __init__(self, cfg: "EngineConfig", plan: PlanArrays):
+        self.plan = plan
+        self.use_kernel = cfg.use_pallas
+        self.p_pad, self.w = plan.dom_bits.shape
+
+    def _compute_cand(self, pos, map2, used2):
+        plan = self.plan
+        if not self.use_kernel:
+            return compute_cand(plan, pos, map2, used2)
+        safe_pos = pos.clamp(0, self.p_pad - 1)
+        sp = safe_pos.long()
+        row_idx = kops.flat_row_index(
+            plan.parent_pos[sp], plan.parent_dir[sp], plan.parent_elab[sp], map2,
+            plan.adj_bits.shape[2], plan.rows.shape[0] - 1,
+        )
+        return kops.candidate_mask(plan.rows, plan.dom_bits, safe_pos.to(torch.int32),
+                                   row_idx, used2)
+
+    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+        valid, v, cand2 = pop_lowest_bit(cand)
+        map2, used2 = _extend_payload(depth, map_, used, valid, v, self.p_pad, self.w)
+        is_match = valid & (depth + 1 >= self.plan.n_p)
+        want_child = valid & ~is_match
+        child = self._compute_cand(torch.where(want_child, depth + 1, 0), map2, used2)
+        child = torch.where(want_child[:, None], child, 0)
+        has_child = want_child & (child != 0).any(dim=-1)
+        return StepLanes(valid, v, is_match, has_child, cand2, map2, used2, child)
+
+
+class PallasStepBackend:
+    """The fused step: one ``extend_step`` kernel launch per expansion.
+
+    PyTorch only computes what the kernel's inputs need up front — the
+    extracted ``v`` feeds the adjacency-row table — and the cheap ``map2`` /
+    ``used2`` payloads; all other ``w``-wide work is in the kernel."""
+
+    name = "pallas"
+
+    def __init__(self, cfg: "EngineConfig", plan: PlanArrays):
+        self.plan = plan
+        self.p_pad, self.w = plan.dom_bits.shape
+
+    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+        plan = self.plan
+        valid, v, _ = pop_lowest_bit(cand)
+        map2, used2 = _extend_payload(depth, map_, used, valid, v, self.p_pad, self.w)
+        child_pos = (depth + 1).clamp(0, self.p_pad - 1)
+        cp = child_pos.long()
+        row_idx = kops.flat_row_index(
+            plan.parent_pos[cp], plan.parent_dir[cp], plan.parent_elab[cp], map2,
+            plan.adj_bits.shape[2], plan.rows.shape[0] - 1,
+        )
+        cand2, child, meta = kops.extend_step(
+            plan.rows, plan.dom_bits, child_pos.to(torch.int32), row_idx,
+            depth.to(torch.int32), plan.n_p, used, cand,
+        )
+        return StepLanes(
+            valid=meta[:, 0] != 0,
+            v=meta[:, 1],
+            is_match=meta[:, 2] != 0,
+            has_child=meta[:, 3] != 0,
+            cand2=cand2,
+            map2=map2,
+            used2=used2,
+            child_cand=child,
+        )
+
+
+def make_step_backend(cfg: "EngineConfig", plan: PlanArrays) -> StepBackend:
+    if cfg.step_backend == "jnp":
+        return JnpStepBackend(cfg, plan)
+    if cfg.step_backend == "pallas":
+        return PallasStepBackend(cfg, plan)
+    raise ValueError(
+        f"unknown step_backend {cfg.step_backend!r}; expected one of {STEP_BACKENDS}"
+    )
+
+
+# ---------------------------------------------------------------------------
+# the shared expansion step (frontier pop -> backend -> counters -> push)
+# ---------------------------------------------------------------------------
+
+def make_step_fn(cfg: "EngineConfig", plan: PlanArrays):
+    """Build one full expansion step ``EngineState -> EngineState``.
+
+    The returned state shares (and the step updates in place) the stack
+    tensors of the state it was given."""
+    backend = make_step_backend(cfg, plan)
+    e = cfg.expand_width
+
+    def step(st: EngineState) -> EngineState:
+        v_loc, s_cap = st.st_depth.shape
+        pop = frontier.pop_top_k(
+            st.st_depth, st.st_map, st.st_used, st.st_cand,
+            st.base, st.size, e, store_used=cfg.store_used,
+        )
+
+        b = v_loc * e
+        lanes = backend.expand_lanes(
+            pop.depth.reshape(b),
+            pop.map.reshape(b, -1),
+            pop.used.reshape(b, -1),
+            pop.cand.reshape(b, -1),
+        )
+
+        def sh(x):
+            return x.reshape((v_loc, e) + x.shape[1:])
+
+        valid = sh(lanes.valid) & pop.lane_on
+        is_match = sh(lanes.is_match) & pop.lane_on
+        has_child = sh(lanes.has_child) & pop.lane_on
+        cand2, map2, used2, child_cand = (
+            sh(x) for x in (lanes.cand2, lanes.map2, lanes.used2, lanes.child_cand)
+        )
+
+        states = st.states + valid.sum(dim=1, dtype=torch.int32)
+        exp_depth = st.exp_depth + torch.where(valid, pop.depth, 0).sum(dim=1, dtype=torch.int32)
+        matches = st.matches + is_match.sum(dim=1, dtype=torch.int32)
+
+        if cfg.collect_matches > 0:
+            # the step's m-th match of a worker goes to ring slot
+            # (matches + m) % mcap of its match buffer
+            mbuf = st.match_buf
+            mcap = mbuf.shape[1]
+            m_int = is_match.to(torch.int32)
+            m_prefix = torch.cumsum(m_int, dim=1).to(torch.int32) - m_int
+            n_out = min(e, mcap)
+            src, take = frontier.invert_slots(torch.where(is_match, m_prefix, -1), n_out)
+            vidx = torch.arange(v_loc, device=src.device)[:, None]
+            slots = (st.matches[:, None] + torch.arange(n_out, device=src.device)[None, :]) % mcap
+            frontier.write_slots(mbuf, vidx, slots, map2[vidx, src], take)
+
+        parent_keep = pop.lane_on & (cand2 != 0).any(dim=-1)
+        new_size = frontier.push_entries(
+            st.st_depth, st.st_map, st.st_used, st.st_cand, st.base, st.size,
+            pop.k, parent_keep, has_child,
+            pop.depth, pop.map, pop.used, cand2,
+            pop.depth + 1, map2, used2, child_cand,
+            store_used=cfg.store_used,
+        )
+        overflow = st.overflow | frontier.overflowed(new_size, s_cap)
+        return st._replace(
+            size=new_size, matches=matches, states=states,
+            exp_depth=exp_depth, overflow=overflow,
+        )
+
+    return step

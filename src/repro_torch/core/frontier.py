@@ -1,0 +1,263 @@
+"""Ring-buffer frontier stacks: the state layer of the engine.
+
+Each of ``V`` workers owns a ring-buffer stack of search-tree entries
+(:class:`EngineState`): an entry is ``(depth, mapping, used-bitmap,
+candidate-bitmap)`` and a task is one candidate bit.  This module pops the
+top ``expand_width`` entries, pushes surviving parents below fresh children,
+and tracks overflow; it knows nothing of what an expansion computes
+(`repro_torch.core.extend`) or how rounds are driven
+(`repro_torch.core.engine`).  A port of ``repro.core.frontier``.
+
+Unlike the JAX package, the stack tensors are updated **in place**: a
+functional update would copy every ``[V, S, W]`` stack each step.  The
+pushes write through :func:`write_slots`, which reads back the old value
+where no entry is pushed, so each slot is written by at most one source.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple, TYPE_CHECKING
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import WORD_BITS, bitmap_from_indices
+from repro_torch.core.plan import SearchPlan
+
+if TYPE_CHECKING:  # engine imports extend imports frontier
+    from repro_torch.core.engine import EngineConfig
+
+
+class EngineState(NamedTuple):
+    st_depth: torch.Tensor  # [V, S] int32
+    st_map: torch.Tensor  # [V, S, P] int32
+    st_used: torch.Tensor  # [V, S, W] int32 ([V, S, 1] without store_used)
+    st_cand: torch.Tensor  # [V, S, W] int32
+    base: torch.Tensor  # [V] int32 ring-buffer base
+    size: torch.Tensor  # [V] int32
+    matches: torch.Tensor  # [V] int32
+    states: torch.Tensor  # [V] int32
+    exp_depth: torch.Tensor  # [V] int32 summed depth of expanded entries
+    steals: torch.Tensor  # [V] int32 entries received
+    steal_depth: torch.Tensor  # [V] int32 summed depth of stolen entries
+    steal_rounds: torch.Tensor  # [] int32 rounds with any transfer
+    steps: torch.Tensor  # [] int32
+    overflow: torch.Tensor  # [] bool — stack high-watermark breached
+    match_buf: torch.Tensor  # [V, Mcap, P] int32 (Mcap >= 1)
+
+
+class Popped(NamedTuple):
+    """Top-of-stack lanes selected by :func:`pop_top_k`.
+
+    Off lanes (``lane_on == False``) carry zeroed depth/candidates so the
+    expansion backend never has to re-check the lane mask for validity.
+    """
+
+    depth: torch.Tensor  # [V, E] int32 (0 on off lanes)
+    map: torch.Tensor  # [V, E, P] int32
+    used: torch.Tensor  # [V, E, W] int32
+    cand: torch.Tensor  # [V, E, W] int32 (0 on off lanes)
+    lane_on: torch.Tensor  # [V, E] bool
+    k: torch.Tensor  # [V] int32 entries actually popped per worker
+
+
+def invert_slots(dest: torch.Tensor, n_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Invert a per-row source → output-position map.
+
+    ``dest`` is ``[R, n_src]`` with each source's output position, or
+    ``-1`` (or anything ``>= n_out``) for a source that writes nothing;
+    valid positions of one row must be distinct.  Returns ``(src, has)``,
+    both ``[R, n_out]``: the source index writing each position (0 where
+    none) and whether any does.  This replaces JAX's ``mode="drop"``
+    scatters: dropped writes land in a spare column that is cut off."""
+    rows, n_src = dest.shape
+    idx = torch.where((dest >= 0) & (dest < n_out), dest, n_out).long()
+    src = torch.zeros((rows, n_out + 1), dtype=torch.long, device=dest.device)
+    src.scatter_(1, idx, torch.arange(n_src, device=dest.device).expand(rows, n_src))
+    has = torch.zeros((rows, n_out + 1), dtype=torch.bool, device=dest.device)
+    has.scatter_(1, idx, True)
+    return src[:, :n_out], has[:, :n_out]
+
+
+def write_slots(dst: torch.Tensor, ridx: torch.Tensor, slots: torch.Tensor,
+                values: torch.Tensor, take: torch.Tensor) -> None:
+    """``dst[ridx, slots] = values`` in place where ``take``, unchanged
+    elsewhere.  ``(ridx, slots)`` pairs must be distinct."""
+    old = dst[ridx, slots]
+    mask = take.reshape(take.shape + (1,) * (values.dim() - take.dim()))
+    dst[ridx, slots] = torch.where(mask, values, old)
+
+
+def used_from_map(map_: torch.Tensor, depth: torch.Tensor, w: int) -> torch.Tensor:
+    """Reconstruct used-bitmaps ``[..., w]`` from mapped targets at
+    positions < depth (the ``store_used=False`` stack representation)."""
+    p_pad = map_.shape[-1]
+    words = torch.arange(w, device=map_.device)
+    u = torch.zeros(map_.shape[:-1] + (w,), dtype=torch.int32, device=map_.device)
+    for j in range(p_pad):
+        t = map_[..., j]
+        valid = (j < depth) & (t >= 0)
+        t = t.clamp_min(0)
+        bit = torch.ones_like(t) << (t % WORD_BITS)
+        hit = valid[..., None] & (words == (t // WORD_BITS)[..., None])
+        u = u | torch.where(hit, bit[..., None], 0)
+    return u
+
+
+def pop_top_k(
+    st_depth: torch.Tensor,
+    st_map: torch.Tensor,
+    st_used: torch.Tensor,
+    st_cand: torch.Tensor,
+    base: torch.Tensor,
+    size: torch.Tensor,
+    expand_width: int,
+    store_used: bool = True,
+) -> Popped:
+    """Select each worker's top ``expand_width`` entries (top-first lanes).
+
+    ``k = min(size, expand_width, free_space)`` per worker — the capacity
+    guard: a worker never pops more than it could push back (each popped
+    entry re-emits at most a parent + a child), so a full ring freezes
+    rather than corrupts.  Popping is logical only: ``size`` is adjusted by
+    the subsequent :func:`push_entries`, which reuses the vacated slots.
+    """
+    v_loc, s_cap = st_depth.shape
+    w = st_cand.shape[2]
+    dev = st_depth.device
+    e = expand_width
+
+    k = torch.minimum(size.clamp(max=e), s_cap - size)
+    lane = torch.arange(e, dtype=torch.int32, device=dev)[None, :]
+    lane_on = lane < k[:, None]
+    pos = size[:, None] - 1 - lane  # top-first
+    slot = torch.where(lane_on, (base[:, None] + pos) % s_cap, 0).long()
+    vidx = torch.arange(v_loc, device=dev)[:, None]
+
+    depth = torch.where(lane_on, st_depth[vidx, slot], 0)
+    cand = torch.where(lane_on[..., None], st_cand[vidx, slot], 0)
+    map_ = st_map[vidx, slot]
+    used = st_used[vidx, slot] if store_used else used_from_map(map_, depth, w)
+    return Popped(depth, map_, used, cand, lane_on, k)
+
+
+def push_entries(
+    st_depth: torch.Tensor,
+    st_map: torch.Tensor,
+    st_used: torch.Tensor,
+    st_cand: torch.Tensor,
+    base: torch.Tensor,
+    size: torch.Tensor,
+    k: torch.Tensor,
+    parent_keep: torch.Tensor,  # [V, E] parents with remaining candidates
+    has_child: torch.Tensor,  # [V, E] lanes that emitted a live child
+    p_depth: torch.Tensor,  # parent re-push payload ([V, E] / [V, E, ...])
+    p_map: torch.Tensor,
+    p_used: torch.Tensor,
+    p_cand: torch.Tensor,
+    c_depth: torch.Tensor,  # child payload
+    c_map: torch.Tensor,
+    c_used: torch.Tensor,
+    c_cand: torch.Tensor,
+    store_used: bool = True,
+) -> torch.Tensor:
+    """Push surviving parents below their fresh children, lanes k-1 .. 0,
+    into the stacks **in place**; returns the new ``size``.
+
+    Emission is reversed-lane (lane k-1 first) so lane 0 — the deepest,
+    top-of-stack entry — ends back on top: per-worker DFS order is
+    preserved across steps.  Output positions come from a per-worker prefix
+    sum over ``(parent_keep, has_child)``; they fill ``[0, total_push)``
+    above ``size - k``, so the write is an inverse gather over those
+    positions (see :func:`invert_slots`).
+    """
+    v_loc, s_cap = st_depth.shape
+    e = parent_keep.shape[1]
+    dev = st_depth.device
+    rev = torch.arange(e - 1, -1, -1, device=dev)
+    pk_r = parent_keep[:, rev].to(torch.int32)
+    hc_r = has_child[:, rev].to(torch.int32)
+    per_lane = pk_r + hc_r
+    offs = torch.cumsum(per_lane, dim=1).to(torch.int32) - per_lane
+    parent_out = torch.where(pk_r > 0, offs, -1)[:, rev]
+    child_out = torch.where(hc_r > 0, offs + pk_r, -1)[:, rev]
+    total_push = per_lane.sum(dim=1, dtype=torch.int32)
+    push_base = size - k
+
+    # valid positions are < total_push <= s_cap - push_base, so capping the
+    # range at s_cap keeps every written slot distinct
+    n_out = min(2 * e, s_cap)
+    src, take = invert_slots(torch.cat([parent_out, child_out], dim=1), n_out)
+    o = torch.arange(n_out, device=dev)[None, :]
+    slots = ((base + push_base)[:, None] + o) % s_cap
+    vidx = torch.arange(v_loc, device=dev)[:, None]
+
+    def payload(p, c):
+        return torch.cat([p, c], dim=1)[vidx, src]
+
+    write_slots(st_depth, vidx, slots, payload(p_depth, c_depth), take)
+    write_slots(st_map, vidx, slots, payload(p_map, c_map), take)
+    write_slots(st_cand, vidx, slots, payload(p_cand, c_cand), take)
+    if store_used:
+        write_slots(st_used, vidx, slots, payload(p_used, c_used), take)
+    return push_base + total_push
+
+
+def overflowed(size: torch.Tensor, s_cap: int) -> torch.Tensor:
+    """High-watermark check: a completely full ring (``size == s_cap``)
+    counts as overflow — the pop guard then freezes the worker, silently
+    undercounting, which is why the session retries with a doubled cap
+    (`repro_torch.core.session.Enumerator.run`)."""
+    return (size > s_cap - 1).any()
+
+
+def init_state(plan: SearchPlan, cfg: "EngineConfig", device) -> EngineState:
+    """Initial work distribution: the paper's §3.3 vertex seeding
+    (``cfg.root_seeding == "vertex"``, the only mode ported so far)."""
+    return _init_vertex_state(plan, cfg, device)
+
+
+def _init_vertex_state(
+    plan: SearchPlan, cfg: "EngineConfig", device, root_mask: Optional[np.ndarray] = None
+) -> EngineState:
+    """Depth-0 candidates split into equal contiguous target-node ranges,
+    one root entry per worker; ``root_mask`` optionally restricts the root
+    candidates."""
+    v = cfg.n_workers
+    p_pad, w = plan.p_pad, plan.w
+    s_cap = cfg.resolved_stack_cap(p_pad)
+    mcap = max(1, cfg.collect_matches)
+
+    splits = np.linspace(0, plan.n_t, v + 1).astype(np.int64)
+    root_cands = np.zeros((v, w), dtype=np.uint32)
+    for kk in range(v):
+        idx = np.arange(splits[kk], splits[kk + 1])
+        if idx.size:
+            root_cands[kk] = bitmap_from_indices(idx, plan.n_t, w) & plan.dom_bits[0]
+    if root_mask is not None:
+        root_cands &= root_mask[None, :]
+    if not plan.satisfiable:
+        root_cands[:] = 0
+
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    st_cand = zeros(v, s_cap, w)
+    st_cand[:, 0] = torch.from_numpy(root_cands.view(np.int32)).to(device)
+    return EngineState(
+        st_depth=zeros(v, s_cap),
+        st_map=torch.full((v, s_cap, p_pad), -1, dtype=torch.int32, device=device),
+        st_used=zeros(v, s_cap, w if cfg.store_used else 1),
+        st_cand=st_cand,
+        base=zeros(v),
+        size=torch.from_numpy(root_cands.any(axis=1).astype(np.int32)).to(device),
+        matches=zeros(v),
+        states=zeros(v),
+        exp_depth=zeros(v),
+        steals=zeros(v),
+        steal_depth=zeros(v),
+        steal_rounds=zeros(),
+        steps=zeros(),
+        overflow=zeros(dtype=torch.bool),
+        match_buf=torch.full((v, mcap, p_pad), -1, dtype=torch.int32, device=device),
+    )

@@ -1,0 +1,93 @@
+"""Sequential reference oracle for subgraph enumeration.
+
+:func:`ref_enumerate` is a recursive RI/RI-DS search over a
+:class:`~repro_torch.core.plan.SearchPlan` with plain Python sets (a copy
+of ``repro.core.ref.ref_enumerate`` for dense plans).  Its ``states``
+counter is the paper's search-space metric: a state is counted each time a
+consistent extension ``M ∪ {μ_d → v}`` is formed.  The engine must agree
+with it on both matches and states.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+from repro_torch.core.graph import Graph, PackedGraph, bitmap_to_indices
+from repro_torch.core.plan import SearchPlan, build_plan
+
+
+@dataclasses.dataclass
+class RefResult:
+    matches: int
+    states: int
+    mappings: Optional[List[Tuple[int, ...]]] = None  # order-position -> target
+
+
+def ref_enumerate(
+    pattern: Graph,
+    target: Graph,
+    variant: str = "ri-ds-si-fc",
+    packed: Optional[PackedGraph] = None,
+    plan: Optional[SearchPlan] = None,
+    record_mappings: bool = False,
+    max_states: Optional[int] = None,
+) -> RefResult:
+    """Sequential reference RI/RI-DS enumeration over a SearchPlan.
+
+    Semantics match the vectorized engine exactly: per position, candidates
+    are ``domain ∧ ¬used ∧ (adjacency rows of mapped parents)``; every
+    candidate accepted increments ``states``; full-depth candidates are
+    matches.
+    """
+    if plan is None:
+        packed = packed or PackedGraph.from_graph(target)
+        plan = build_plan(pattern, packed, variant=variant)
+    if not plan.satisfiable or pattern.n == 0:
+        return RefResult(matches=0, states=0, mappings=[] if record_mappings else None)
+
+    n_p = plan.n_p
+    dom = [set(bitmap_to_indices(plan.dom_bits[i]).tolist()) for i in range(n_p)]
+    adj_sets = {}
+
+    def adj(lab: int, d: int, t: int) -> set:
+        key = (lab, d, t)
+        if key not in adj_sets:
+            adj_sets[key] = set(bitmap_to_indices(plan.adj_bits[lab, d, t]).tolist())
+        return adj_sets[key]
+
+    mapping = [-1] * n_p
+    used = set()
+    out = RefResult(matches=0, states=0, mappings=[] if record_mappings else None)
+
+    def candidates(pos: int) -> List[int]:
+        cand = dom[pos] - used
+        for j in range(int(plan.n_parents[pos])):
+            pp = int(plan.parent_pos[pos, j])
+            pd = int(plan.parent_dir[pos, j])
+            pl = int(plan.parent_elab[pos, j])
+            cand = cand & adj(pl, pd, mapping[pp])
+            if not cand:
+                break
+        return sorted(cand)
+
+    def rec(pos: int) -> None:
+        if max_states is not None and out.states >= max_states:
+            return
+        for v in candidates(pos):
+            out.states += 1
+            if pos == n_p - 1:
+                out.matches += 1
+                if record_mappings:
+                    out.mappings.append(tuple(mapping[:pos] + [v]))
+            else:
+                mapping[pos] = v
+                used.add(v)
+                rec(pos + 1)
+                used.discard(v)
+                mapping[pos] = -1
+            if max_states is not None and out.states >= max_states:
+                return
+
+    rec(0)
+    return out

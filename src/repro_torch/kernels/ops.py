@@ -1,0 +1,56 @@
+"""Public kernel entry points: one decision per call, by the device of the
+tensors.
+
+A CUDA tensor gets the hand-written CUDA kernel, or an exception; a CPU
+tensor gets the kernel's plain PyTorch version (`repro_torch.kernels.ref`).
+There is no fallback from one to the other.  Each kernel counts its
+launches (:func:`launch_counts`), so a run can show that it went through
+the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import candidate_mask as _cm
+from repro_torch.kernels import extend_step as _es
+from repro_torch.kernels import ref as kref
+
+flatten_adj_rows = _cm.flatten_adj_rows
+flat_row_index = _cm.flat_row_index
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for tensors on {t.device}")
+
+
+def candidate_mask(rows, dom_bits, pos, row_idx, used) -> torch.Tensor:
+    """K2: ``dom[pos] ∧ ¬used ∧ ⋀_j rows[row_idx[:, j]]`` per lane
+    (see `repro_torch.kernels.candidate_mask`)."""
+    if _on_card(used):
+        return _cm.candidate_mask_cuda(rows, dom_bits, pos, row_idx, used)
+    return kref.candidate_mask_ref(rows, dom_bits, pos, row_idx, used)
+
+
+def extend_step(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand):
+    """K1: the fused expansion step; returns ``(cand2, child, meta)``
+    (see `repro_torch.kernels.extend_step`)."""
+    if _on_card(cand):
+        return _es.extend_step_cuda(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
+    return kref.extend_step_ref(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {"extend_step": _es.launches, "candidate_mask": _cm.launches}
+
+
+def reset_launch_counts() -> None:
+    _es.launches = 0
+    _cm.launches = 0
