@@ -18,7 +18,21 @@ Phases, each printed as one JSON line:
    three runs and with the sequential oracle, and each kernel must have
    been launched by the run that uses it.  One more warm run of each path's
    deepest query under ``torch.profiler`` gives the card's busy share and
-   the kernel launches per engine step.
+   the kernel launches per engine step;
+4. batch path — the same target with 24 patterns (8 each of 8, 16 and 24
+   edges), under ``ri-ds-si-fc`` and ``ri-ds-si-acfc``:
+   ``Enumerator.prepare_batch`` with the device fixpoint through K5
+   (``adjacency_any``) and K3 (``popcount_rows``), through plain PyTorch,
+   and on the host (numpy), which must give identical domains and plans;
+   ``compute_domains_device(use_pallas=True)`` per pattern through K4
+   (``arc_any_sweep``) and K3, which must give the same bits; and
+   ``Enumerator.stream`` in packs of 4 through K1 and through K2, whose
+   every counter must equal the same query's single run, and
+   ``ref_enumerate``'s matches and states.  It prints per-pattern
+   preparation time (device and numpy), each pack's time, kernel launches
+   per fixpoint sweep, and the card's busy share of one profiled pack.
+   Then K3, K5 and K4 are checked and timed at full width on the target's
+   own adjacency planes with one 48-arc pattern's real domain masks.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -47,8 +61,13 @@ LANE_OPS_PER_S = 67e12
 ENGINE_KW = dict(n_workers=64, expand_width=64, steal_chunk=4, rebalance_interval=8)
 N_T = 12575
 COLLECTION = dict(name="ppis32-like", pattern_edges=(8, 16, 24), patterns_per_target=2,
-                  scale=N_T / 800, seed=7)
+                  scale=N_T / 800, seed=7, n_targets=1)
 VARIANT = "ri-ds-si-fc"
+# phase 4, the batch path: the same target (target 0 of the same seed) with
+# 24 patterns, under both FC variants, in packs of 4
+BATCH_COLLECTION = dict(COLLECTION, patterns_per_target=8)
+BATCH_VARIANTS = ("ri-ds-si-fc", "ri-ds-si-acfc")
+PACK_SIZE = 4
 MAIN_MP = 8  # DEFAULT_MAX_PARENTS
 MAIN_P_PAD = 32
 
@@ -212,6 +231,65 @@ def check_kernels(device):
     return checks, timing
 
 
+DOMAIN_KERNELS = ("popcount_rows", "adjacency_any", "arc_any_sweep")
+
+
+def domain_kernel_case(adj, arc_row, masks) -> dict:
+    """K3, K5 and K4 against their plain versions on one set of inputs:
+    K3 on the rows of plane ``arc_row[0]``, K5 on that plane with
+    ``masks[0]``, K4 on every arc.  Returns mismatched words and the
+    largest error per kernel."""
+    import torch
+
+    from repro_torch.kernels import domain_ac, popcount_reduce
+    from repro_torch.kernels import ref as kref
+
+    plane = adj[int(arc_row[0])]
+    pairs = {
+        "popcount_rows": (popcount_reduce.popcount_rows_cuda(plane),
+                          kref.popcount_rows_ref(plane)),
+        "adjacency_any": (domain_ac.adjacency_any_cuda(plane, masks[0]),
+                          kref.adjacency_any_ref(plane, masks[0])),
+        "arc_any_sweep": (domain_ac.arc_any_sweep_cuda(adj, arc_row, masks),
+                          kref.arc_any_sweep_ref(adj, arc_row, masks)),
+    }
+    torch.cuda.synchronize()
+    case = dict(n_planes=adj.shape[0], n_t=adj.shape[1], w=adj.shape[2], n_arcs=masks.shape[0])
+    for name, (k, p) in pairs.items():
+        case[f"{name}_mismatches"] = int((k != p).sum())
+        case[f"{name}_err"] = max_abs_err(k, p)
+    return case
+
+
+def check_domain_kernels_edges(device) -> list:
+    """K3, K4 and K5 at edge shapes: w ∈ {1, 33, 257}, n_t not a multiple
+    of the 64-row tile, one arc, all-zero and all-ones masks, sparse rows
+    (so most rows read to their end) and dense ones."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(12)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+    cases = []
+    for n_planes, n_t, w, n_arcs, density in [(2, 1, 1, 1, 0.5), (2, 65, 1, 3, 0.5),
+                                              (4, 100, 33, 1, 0.02), (2, 257, 33, 6, 0.5),
+                                              (6, 1000, 257, 9, 0.002), (2, 129, 257, 48, 0.01)]:
+        bits = rng.random((n_planes, n_t, w * 32)) < density
+        adj = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
+        arc_row = rng.integers(0, n_planes, n_arcs).astype(np.int32)
+        masks = rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32)
+        masks[0] &= rng.integers(0, 2**32, w, dtype=np.uint32)  # sparser first mask
+        for fill in (None, 0, 0xFFFFFFFF):
+            if fill is not None:
+                masks = np.full((n_arcs, w), fill, np.uint32)
+            cases.append(dict(domain_kernel_case(t(adj), t(arc_row), t(masks)),
+                              mask="random" if fill is None else hex(fill)))
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the main path
 # ---------------------------------------------------------------------------
@@ -313,6 +391,258 @@ def run_main_path(device):
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# phase 4: the batch path
+# ---------------------------------------------------------------------------
+
+def _counters(ms):
+    return (ms.matches, ms.states, ms.steps, ms.steals, ms.steal_rounds,
+            None if ms.per_worker_states is None else ms.per_worker_states.tolist(),
+            None if ms.per_worker_matches is None else ms.per_worker_matches.tolist(),
+            None if ms.per_worker_steals is None else ms.per_worker_steals.tolist())
+
+
+def _launched(fn):
+    """Run ``fn`` with every launch count set to 0 just before; returns its
+    result and the counts read just after."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    out = fn()
+    return out, ops.launch_counts()
+
+
+def _add(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def profile_pack(enum, queries) -> dict:
+    """One warm ``run_pack`` of ``queries`` under ``torch.profiler``: the
+    card's busy share of the pack's wall time and its kernel launches per
+    engine step (the pack's steps are its longest lane's)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(enum.device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = enum.run_pack(queries, pack_size=PACK_SIZE)
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    steps = max(ms.steps for ms in res)
+    if not kernels:
+        return dict(queries=[q.name for q in queries],
+                    device_time="not measured (no device events traced)")
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:6]
+    return dict(queries=[q.name for q in queries], steps=steps, profiled_wall_s=wall,
+                device_busy_s=busy_us / 1e6, device_busy_share=busy_us / 1e6 / wall,
+                kernel_launches=n_kernels, launches_per_step=n_kernels / steps,
+                top=[dict(name=e.key[:80], count=e.count, device_us=e.self_device_time_total)
+                     for e in top])
+
+
+def run_batch_path(device, collection=None):
+    """Phase 4: ``prepare_batch`` (device fixpoint with K5 + K3, and plain)
+    against the numpy preparation, the single-query sweep fixpoint (K4 +
+    K3), and ``run_batch`` in packs through K1 and through K2, each pack
+    lane against the same query's single run and ``ref_enumerate``.
+    Returns the launch counts of the runs that use each kernel, and the
+    inputs of the full-width domain-kernel check."""
+    import numpy as np
+
+    from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
+    from repro_torch.core import domains as dom
+    from repro_torch.core.plan import variant_flags
+    from repro_torch.core.ref import ref_enumerate
+    from repro_torch.data import graphgen
+
+    t0 = time.perf_counter()
+    insts = graphgen.make_collection(**(collection or BATCH_COLLECTION))
+    target = insts[0].target
+    insts = [i for i in insts if i.target is target]
+    patterns = [i.pattern for i in insts]
+    names = [i.name for i in insts]
+    index = SubgraphIndex.build(target)
+    buckets = {}
+    for p in patterns:
+        n_p, n_a, n_l = dom.domain_bucket(p)
+        key = f"p{n_p}/arcs{n_a}/loops{n_l}"
+        buckets[key] = buckets.get(key, 0) + 1
+    emit(dict(phase="batch_path_setup", n_t=target.n, w=index.w, patterns=len(patterns),
+              pattern_shapes=buckets, setup_s=time.perf_counter() - t0))
+
+    def session(variant, **kw):
+        return Enumerator(index, config=EngineConfig(**ENGINE_KW, **kw), variant=variant,
+                          device=device)
+
+    launches = {"prepare_batch": {}, "sweep": {}, "run_batch_pallas": {}, "run_batch_jnp": {}}
+    full_width = None
+    for variant in BATCH_VARIANTS:
+        kern = session(variant, step_backend="pallas", use_pallas=True)  # K5 + K3, K1
+        plain = session(variant, step_backend="pallas")  # plain fixpoint
+        k2 = session(variant, step_backend="jnp", use_pallas=True)  # K2
+        kern.prepare_batch(patterns[:PACK_SIZE])  # warm-up: first use of each op
+
+        qs, prep_counts = _launched(lambda: kern.prepare_batch(patterns, names=names))
+        _add(launches["prepare_batch"], prep_counts)
+        if not (prep_counts["adjacency_any"] and prep_counts["popcount_rows"]):
+            raise AssertionError(f"{variant}: prepare_batch(use_pallas) launched {prep_counts}")
+        qs_plain, counts_plain = _launched(lambda: plain.prepare_batch(patterns, names=names))
+        if any(counts_plain.values()):
+            raise AssertionError(f"{variant}: the plain fixpoint launched {counts_plain}")
+        qs_np = kern.prepare_batch(patterns, names=names, backend="numpy")
+        for a, b, c in zip(qs, qs_plain, qs_np):
+            for f in ("dom_bits", "order", "parent_pos", "parent_dir", "parent_elab"):
+                if not (np.array_equal(getattr(a.plan, f), getattr(c.plan, f))
+                        and np.array_equal(getattr(b.plan, f), getattr(c.plan, f))):
+                    raise AssertionError(f"{variant} {a.name}: device {f} != numpy")
+            if not a.satisfiable == b.satisfiable == c.satisfiable:
+                raise AssertionError(f"{variant} {a.name}: satisfiable differs")
+
+        flags = variant_flags(variant)
+        flags = dict(use_ac=flags["use_ac"], use_fc=flags["use_fc"],
+                     interleave=flags["interleave"])
+        tgt = kern._target_domain_arrays(index)
+        sweep_counts = {}
+        for p, q in zip(patterns, qs_np):
+            d, counts = _launched(lambda: dom.compute_domains_device(
+                p, index.packed, use_pallas=True, tgt_arrays=tgt, **flags))
+            _add(sweep_counts, counts)
+            if d.satisfiable != q.satisfiable or not np.array_equal(d.bits, q.plan.domains.bits):
+                raise AssertionError(f"{variant} {q.name}: sweep fixpoint != numpy")
+        _add(launches["sweep"], sweep_counts)
+        if not (sweep_counts["arc_any_sweep"] and sweep_counts["popcount_rows"]):
+            raise AssertionError(f"{variant}: the sweep fixpoint launched {sweep_counts}")
+
+        singles = [kern.run(q) for q in qs]  # also warms up the engine's ops
+        packed_runs, run_counts = {}, {}
+        for label, enum in (("run_batch_pallas", kern), ("run_batch_jnp", k2)):
+            packed_runs[label], run_counts[label] = _launched(
+                lambda: list(enum.stream(qs, pack_size=PACK_SIZE)))
+            _add(launches[label], run_counts[label])
+        if not run_counts["run_batch_pallas"]["extend_step"]:
+            raise AssertionError("the pallas packs never launched extend_step")
+        if not run_counts["run_batch_jnp"]["candidate_mask"]:
+            raise AssertionError("the jnp+use_pallas packs never launched candidate_mask")
+        for label, res in packed_runs.items():
+            by_index = {ms.query_index: ms for ms in res}
+            for i, one in enumerate(singles):
+                if _counters(by_index[i]) != _counters(one):
+                    raise AssertionError(f"{variant} {label} {one.name}: pack != single run")
+        oracle = []
+        for p, one in zip(patterns, singles):
+            ref = ref_enumerate(p, target, plan=one.plan)
+            oracle.append((ref.matches, ref.states))
+            if (ref.matches, ref.states) != (one.matches, one.states):
+                raise AssertionError(f"{one.name}: engine {(one.matches, one.states)} != "
+                                     f"ref_enumerate {(ref.matches, ref.states)}")
+
+        packs = []  # one pack's lanes share one match_s value and come out together
+        for ms in packed_runs["run_batch_pallas"]:
+            if packs and packs[-1]["match_s"] == ms.match_s:
+                packs[-1]["queries"].append(ms.name)
+            else:
+                packs.append(dict(match_s=ms.match_s, queries=[ms.name]))
+        deepest = sorted(range(len(qs)), key=lambda i: -singles[i].states)[:PACK_SIZE]
+        emit(dict(
+            phase="batch_path", variant=variant,
+            prepare_s=[dict(name=q.name, device_s=q.prepare_s, numpy_s=c.prepare_s)
+                       for q, c in zip(qs, qs_np)],
+            prepare_batch_launches=prep_counts, sweep_launches=sweep_counts,
+            k5_launches_per_sweep=(prep_counts["adjacency_any"]
+                                   / max(sweep_counts["arc_any_sweep"], 1)),
+            k3_launches_per_sweep_sweep_route=(sweep_counts["popcount_rows"]
+                                               / max(sweep_counts["arc_any_sweep"], 1)),
+            packs_pallas=packs,
+            run_batch_launches=run_counts,
+            profile_pack=profile_pack(kern, [qs[i] for i in deepest]),
+            queries=[dict(name=one.name, satisfiable=q.satisfiable, matches=one.matches,
+                          states=one.states, steps=one.steps, single_match_s=one.match_s,
+                          ref=list(o))
+                     for q, one, o in zip(qs, singles, oracle)]))
+
+        if full_width is None:  # the first pattern with 48 arcs, with its device domains
+            i = next(i for i, p in enumerate(patterns)
+                     if dom.domain_bucket(p)[1] == 48 and qs[i].satisfiable)
+            arrs = dom.pattern_domain_arrays(patterns[i])
+            bits = qs_np[i].plan.domains.bits
+            full_width = dict(name=names[i], adj_flat=tgt.adj_flat,
+                              arc_row=(np.clip(arrs.arc_lab, 0, index.n_edge_labels - 1) * 2
+                                       + arrs.arc_dir).astype(np.int32),
+                              masks=np.ascontiguousarray(bits[arrs.arc_q]))
+    return launches, full_width
+
+
+def needed_words(plane, masks) -> "torch.Tensor":
+    """Per mask and row, the words an any-test must read for this data:
+    up to and including the first word where ``row ∧ mask`` is not zero,
+    else the whole row (``[n_masks, n_t]``)."""
+    import torch
+
+    out = []
+    for m in masks:
+        hit = (plane & m[None, :]) != 0
+        out.append(torch.where(hit.any(dim=1), hit.to(torch.int32).argmax(dim=1) + 1,
+                               plane.shape[1]))
+    return torch.stack(out)
+
+
+def check_domain_kernels_full(device, fw) -> tuple:
+    """K3, K5 and K4 at the batch path's width on the target's own
+    adjacency planes and one pattern's real domain masks (from the phase-4
+    fixpoint): 0 mismatched words, timed as K1 and K2 are, with their
+    bounds for this data and for a full read."""
+    import torch
+
+    from repro_torch.kernels import domain_ac, popcount_reduce
+    from repro_torch.kernels import ref as kref
+
+    adj = fw["adj_flat"]
+    arc_row = torch.from_numpy(fw["arc_row"]).to(device)
+    masks = torch.from_numpy(fw["masks"].view("int32")).to(device)
+    case = dict(domain_kernel_case(adj, arc_row, masks), pattern=fw["name"])
+    n_planes, n_t, w = adj.shape
+    n_arcs = masks.shape[0]
+    plane0 = adj[int(fw["arc_row"][0])]
+    # data-dependent reads: K5 what its one arc needs; K4 each named plane
+    # once, as far as the furthest-reading arc on it needs
+    k5_words = int(needed_words(plane0, masks[:1]).sum())
+    k4_words = 0
+    for r in sorted(set(fw["arc_row"].tolist())):
+        on = [a for a in range(n_arcs) if int(fw["arc_row"][a]) == r]
+        k4_words += int(needed_words(adj[r], masks[on]).max(dim=0).values.sum())
+    planes = len(set(fw["arc_row"].tolist()))
+    timing = {
+        "popcount_rows": dict(
+            ms=cuda_ms(lambda: popcount_reduce.popcount_rows_cuda(plane0)),
+            plain_ms=cuda_ms(lambda: kref.popcount_rows_ref(plane0)),
+            bytes=words_bytes(n_t * w + n_t), bytes_full=words_bytes(n_t * w + n_t),
+            ops=2 * n_t * w),
+        "adjacency_any": dict(
+            ms=cuda_ms(lambda: domain_ac.adjacency_any_cuda(plane0, masks[0])),
+            plain_ms=cuda_ms(lambda: kref.adjacency_any_ref(plane0, masks[0])),
+            bytes=words_bytes(k5_words + w + n_t), bytes_full=words_bytes(n_t * w + w + n_t),
+            ops=2 * k5_words),
+        "arc_any_sweep": dict(
+            ms=cuda_ms(lambda: domain_ac.arc_any_sweep_cuda(adj, arc_row, masks)),
+            plain_ms=cuda_ms(lambda: kref.arc_any_sweep_ref(adj, arc_row, masks)),
+            bytes=words_bytes(k4_words + n_arcs * (w + 1) + n_arcs * n_t),
+            bytes_full=words_bytes(planes * n_t * w + n_arcs * (w + 1) + n_arcs * n_t),
+            bytes_plane_per_arc=words_bytes(n_arcs * n_t * w + n_arcs * (w + 1) + n_arcs * n_t),
+            ops=2 * k4_words),
+    }
+    for name, t in timing.items():
+        t["bound_full_ms"] = t["bytes_full"] / HBM_BYTES_PER_S * 1e3
+    timing["arc_any_sweep"]["bound_plane_per_arc_ms"] = (
+        timing["arc_any_sweep"]["bytes_plane_per_arc"] / HBM_BYTES_PER_S * 1e3)
+    return case, timing
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -342,12 +672,22 @@ def main() -> int:
               build_s=build_s, build_wall_s=time.perf_counter() - t0, ptxas=ptxas))
 
     checks, timing = check_kernels(device)
+    checks += check_domain_kernels_edges(device)
     emit(dict(phase="kernels_vs_plain", cases=checks))
-    bad = [c for c in checks if c["candidate_mask_mismatches"] or c["extend_step_mismatches"]]
+    bad = [c for c in checks if any(v for k, v in c.items() if k.endswith("_mismatches"))]
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
     launches = run_main_path(device)
+    t0 = time.perf_counter()
+    batch_launches, full_width = run_batch_path(device)
+    full_case, full_timing = check_domain_kernels_full(device, full_width)
+    emit(dict(phase="domain_kernels_full_width", case=full_case, timing=full_timing,
+              batch_path_s=time.perf_counter() - t0))
+    if any(v for k, v in full_case.items() if k.endswith("_mismatches")):
+        raise AssertionError(f"domain kernels disagree at full width: {full_case}")
+    checks.append(full_case)
+    timing.update(full_timing)
 
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
@@ -356,20 +696,30 @@ def main() -> int:
         "candidate_mask": dict(source="src/repro_torch/csrc/candidate_mask.cu",
                                replaces="src/repro/kernels/candidate_mask.py:62",
                                launches=launches["jnp+use_pallas"]["candidate_mask"]),
+        "popcount_rows": dict(source="src/repro_torch/csrc/popcount_rows.cu",
+                              replaces="src/repro/kernels/popcount_reduce.py:31",
+                              launches=batch_launches["prepare_batch"]["popcount_rows"]),
+        "adjacency_any": dict(source="src/repro_torch/csrc/adjacency_any.cu",
+                              replaces="src/repro/kernels/domain_ac.py:58",
+                              launches=batch_launches["prepare_batch"]["adjacency_any"]),
+        "arc_any_sweep": dict(source="src/repro_torch/csrc/arc_any_sweep.cu",
+                              replaces="src/repro/kernels/domain_ac.py:92",
+                              launches=batch_launches["sweep"]["arc_any_sweep"]),
     }
     kernels = []
     for name, m in meta.items():
         t = timing[name]
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = t["ops"] / LANE_OPS_PER_S * 1e3
-        err = max(c[f"{name}_err"] for c in checks)
+        cases = [c for c in checks if f"{name}_err" in c]
+        extra = {k: v for k, v in t.items() if k.startswith(("bound_", "bytes_"))}
         kernels.append(dict(
             name=name, route="cuda", source=m["source"], replaces=m["replaces"],
-            launches=m["launches"], max_abs_err=err,
-            mismatches=sum(c[f"{name}_mismatches"] for c in checks),
+            launches=m["launches"], max_abs_err=max(c[f"{name}_err"] for c in cases),
+            mismatches=sum(c[f"{name}_mismatches"] for c in cases),
             ms=t["ms"], kernel_ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=t["bytes"], library_ms=None))
+            bytes=t["bytes"], library_ms=None, **extra))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

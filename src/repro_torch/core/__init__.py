@@ -3,22 +3,31 @@
 Layers:
   graph      — host graph + packed-bitmap representations (numpy)
   ordering   — RI GreatestConstraintFirst ordering (+ SI tie-break)
-  domains    — RI-DS domains, numpy oracle: init, arc consistency, FC
+  domains    — RI-DS domains: numpy oracle (init, arc consistency, FC)
+               and the device AC ⇄ FC fixpoint
   plan       — SearchPlan: static arrays for the engine
   frontier   — ring-buffer worker stacks: state + pop/push ops
   extend     — the expansion step (plain PyTorch, or the CUDA kernels)
-  scheduler  — steal-round policy
-  engine     — the round loop and steal rounds
+  scheduler  — steal-round policy and LPT pack balancing
+  engine     — the round loop and steal rounds, over a pack of queries
   ref        — sequential oracle
   session    — prepared-query session API (SubgraphIndex / Query /
-               Enumerator / MatchSet)
+               Enumerator / MatchSet), batched preparation and packs
   api        — enumerate_subgraphs() one-shot wrapper
+  multi      — enumerate_many() and run_batch() over raw plans
 """
 
 from repro_torch.core.api import EnumerationResult, enumerate_subgraphs
+from repro_torch.core.domains import (
+    DomainResult,
+    compute_domains_batch,
+    compute_domains_device,
+)
 from repro_torch.core.engine import EngineConfig, EngineResult
 from repro_torch.core.graph import Graph, PackedGraph
 from repro_torch.core.plan import SearchPlan, VARIANTS, build_plan
+from repro_torch.core.multi import QueryResult, enumerate_many
+from repro_torch.core.scheduler import balance_assignment, imbalance
 from repro_torch.core.session import (
     Enumerator,
     MatchSet,
@@ -26,10 +35,14 @@ from repro_torch.core.session import (
     SHAPE_BUCKETS,
     SubgraphIndex,
     prepare_query,
+    snap_arc_pad,
+    snap_batch_pad,
+    snap_loop_pad,
     snap_p_pad,
 )
 
 __all__ = [
+    "DomainResult",
     "EnumerationResult",
     "enumerate_subgraphs",
     "EngineConfig",
@@ -39,11 +52,20 @@ __all__ = [
     "MatchSet",
     "PackedGraph",
     "Query",
+    "QueryResult",
     "SHAPE_BUCKETS",
     "SearchPlan",
     "SubgraphIndex",
     "VARIANTS",
+    "balance_assignment",
     "build_plan",
+    "compute_domains_batch",
+    "compute_domains_device",
+    "enumerate_many",
+    "imbalance",
     "prepare_query",
+    "snap_arc_pad",
+    "snap_batch_pad",
+    "snap_loop_pad",
     "snap_p_pad",
 ]

@@ -7,11 +7,14 @@ owns the ring-buffer stacks, `repro_torch.core.extend` the expansion step
 loop and the steal round.  A port of the single-device half of
 ``repro.core.engine``.
 
-``repro`` runs the loop as a ``lax.while_loop`` on the device.  Here the
-host drives it: each round enqueues ``rebalance_interval`` steps and one
-steal round without waiting, then synchronises once to read the loop
-condition ``sum(size) > 0 & steps < max_steps & ~overflow``.  ``steps``
-advances by whole rounds, as in ``repro``, so every counter is identical.
+``repro`` runs the loop as a ``lax.while_loop`` on the device, vmapped
+over the queries of a pack.  Here the host drives it: each round enqueues
+``rebalance_interval`` steps and one steal round without waiting, then
+synchronises once to read each pack lane's loop condition
+``sum(size) > 0 & steps < max_steps & ~overflow``.  A lane whose
+condition is false is frozen, counters included, as the vmapped loop
+freezes it; a single query is the pack of one.  ``steps`` advances by
+whole rounds, as in ``repro``, so every counter is identical.
 
 Counters are per-worker int32; cross-query aggregation happens on the host
 in Python ints.
@@ -144,8 +147,10 @@ class EngineResult(NamedTuple):
 # steal round (cross-worker, array ops over the V axis)
 # ---------------------------------------------------------------------------
 
-def _steal_round(cfg: EngineConfig, state: EngineState) -> EngineState:
-    """Move donated stack-bottom entries to empty workers, in place.
+def _steal_round(cfg: EngineConfig, state: EngineState,
+                 active: Optional[torch.Tensor] = None) -> EngineState:
+    """Move donated stack-bottom entries to empty workers of the same pack
+    lane, in place; lanes where ``active`` is False take no part.
 
     ``repro`` scatters each donated slot to its receiver and drops the
     rest; here each receiver's intake slots gather their donor entry
@@ -154,43 +159,50 @@ def _steal_round(cfg: EngineConfig, state: EngineState) -> EngineState:
     policy = scheduler.StealPolicy(
         steal_chunk=cfg.steal_chunk, keep_min=cfg.keep_min, recv_cap=cfg.recv_cap
     )
-    v_workers, s_cap = state.st_depth.shape
+    n_lanes, v_workers, s_cap = state.st_depth.shape
     c = cfg.steal_chunk
     dev = state.st_depth.device
 
-    _, accepted, dest_rank, dest_pos = scheduler.plan_steals(state.size, policy)
-    wor = scheduler.receiver_workers(state.size)  # [V] worker per rank
+    # a frozen lane plans with empty stacks: nothing is donated, so nothing moves
+    sizes = state.size if active is None else torch.where(active[:, None], state.size, 0)
+    _, accepted, dest_rank, dest_pos = scheduler.plan_steals(sizes, policy)
+    wor = scheduler.receiver_workers(sizes)  # [L, V] worker per rank
 
     # donated rows from stack bottoms: donor d slot j = logical position j
-    slot_j = torch.arange(c, dtype=torch.int32, device=dev).expand(v_workers, c)
-    src_slot = ((state.base[:, None] + slot_j) % s_cap).long()
-    didx = torch.arange(v_workers, device=dev)[:, None]
-    taken = slot_j < accepted[:, None]
-    dest_w = torch.where(taken, wor[dest_rank.clamp(0, v_workers - 1).long()], -1)
+    slot_j = torch.arange(c, dtype=torch.int32, device=dev).expand(n_lanes, v_workers, c)
+    src_slot = ((state.base[..., None] + slot_j) % s_cap).long()
+    taken = slot_j < accepted[..., None]
+    rank = dest_rank.clamp(0, v_workers - 1).long().view(n_lanes, -1)
+    dest_w = torch.where(taken, wor.gather(1, rank).view(n_lanes, v_workers, c), -1)
 
     # intake position q of receiver w takes the donated slot addressed to it
     n_in = min(cfg.recv_cap, s_cap)
     flat_dest = torch.where((dest_w >= 0) & (dest_pos < n_in), dest_w * n_in + dest_pos, -1)
-    src, has = frontier.invert_slots(flat_dest.reshape(1, -1), v_workers * n_in)
-    src, has = src.reshape(v_workers, n_in), has.reshape(v_workers, n_in)
-    src_w, src_j = src // c, src % c
-    from_slot = src_slot[src_w, src_j]
-    q = torch.arange(n_in, device=dev)[None, :]
-    dst_slot = (state.base[:, None] + q) % s_cap  # receivers are empty
+    src, has = frontier.invert_slots(flat_dest.view(n_lanes, -1), v_workers * n_in)
+    src, has = src.view(n_lanes, v_workers, n_in), has.view(n_lanes, v_workers, n_in)
+    lane = torch.arange(n_lanes, device=dev)[:, None, None]
+    from_slot = src_slot[lane, src // c, src % c]
+    # the pack's workers as one flat axis: worker w of lane l is row l·V + w
+    src_row = (lane * v_workers + src // c).flatten(0, 1)
+    from_slot = from_slot.flatten(0, 1)
+    q = torch.arange(n_in, device=dev)
+    dst_slot = ((state.base[..., None] + q) % s_cap).flatten(0, 1)  # receivers are empty
+    didx = torch.arange(n_lanes * v_workers, device=dev)[:, None]
+    has_f = has.flatten(0, 1)
 
-    depth_in = state.st_depth[src_w, from_slot]
+    depth_in = state.st_depth.flatten(0, 1)[src_row, from_slot].view(n_lanes, v_workers, n_in)
     for name in ("st_depth", "st_map", "st_used", "st_cand"):
-        arr = getattr(state, name)
-        frontier.write_slots(arr, didx, dst_slot, arr[src_w, from_slot], has)
+        arr = getattr(state, name).flatten(0, 1)
+        frontier.write_slots(arr, didx, dst_slot, arr[src_row, from_slot], has_f)
 
-    recv_cnt = has.sum(dim=1, dtype=torch.int32)
-    depth_add = torch.where(has, depth_in, 0).sum(dim=1, dtype=torch.int32)
+    recv_cnt = has.sum(dim=-1, dtype=torch.int32)
+    depth_add = torch.where(has, depth_in, 0).sum(dim=-1, dtype=torch.int32)
     return state._replace(
         base=(state.base + accepted) % s_cap,  # accepted slots were a bottom prefix
         size=state.size - accepted + recv_cnt,
         steals=state.steals + recv_cnt,
         steal_depth=state.steal_depth + depth_add,
-        steal_rounds=state.steal_rounds + (accepted.sum() > 0).to(torch.int32),
+        steal_rounds=state.steal_rounds + (accepted.sum(dim=-1) > 0).to(torch.int32),
     )
 
 
@@ -202,9 +214,9 @@ def make_expand_fn(cfg: EngineConfig, plan: PlanArrays):
     """The worker-local part of one round: ``rebalance_interval`` steps."""
     step = extend.make_step_fn(cfg, plan)
 
-    def expand(state: EngineState) -> EngineState:
+    def expand(state: EngineState, active: Optional[torch.Tensor] = None) -> EngineState:
         for _ in range(cfg.rebalance_interval):
-            state = step(state)
+            state = step(state, active)
         return state
 
     return expand
@@ -212,33 +224,35 @@ def make_expand_fn(cfg: EngineConfig, plan: PlanArrays):
 
 def make_round_fn(cfg: EngineConfig, plan: PlanArrays):
     """One round: ``rebalance_interval`` expansion steps, then one steal
-    round.  Enqueues device work only; nothing here waits for the device."""
+    round, on the pack lanes where ``active`` (``[L]`` bool, None for all)
+    holds.  Enqueues device work only; nothing here waits for the device."""
     expand = make_expand_fn(cfg, plan)
 
-    def body(state: EngineState) -> EngineState:
-        state = expand(state)
+    def body(state: EngineState, active: Optional[torch.Tensor] = None) -> EngineState:
+        state = expand(state, active)
         if cfg.work_stealing and cfg.n_workers > 1:
-            state = _steal_round(cfg, state)
-        return state._replace(steps=state.steps + cfg.rebalance_interval)
+            state = _steal_round(cfg, state, active)
+        ri = cfg.rebalance_interval
+        return state._replace(
+            steps=state.steps + (ri if active is None else active.to(torch.int32) * ri))
 
     return body
 
 
 def _engine_loop(cfg: EngineConfig, plan: PlanArrays, state: EngineState) -> EngineState:
-    """Run rounds until the stacks drain, ``max_steps`` is reached, or a
-    stack overflows (a full ring freezes its worker, so an overflowed run
-    can never drain; the session retries it with a doubled ``stack_cap``).
-    One host synchronisation per round, for the condition."""
+    """Run rounds until every pack lane has drained its stacks, reached
+    ``max_steps``, or overflowed (a full ring freezes its worker, so an
+    overflowed run can never drain; the session retries it with a doubled
+    ``stack_cap``).  One host synchronisation per round reads every lane's
+    condition; a lane whose condition is false stays frozen."""
     max_steps = cfg.max_steps or (1 << 30)
     body = make_round_fn(cfg, plan)
-
-    def cond(st: EngineState) -> bool:
-        go = (st.size.sum() > 0) & (st.steps < max_steps) & ~st.overflow
-        return bool(go.item())
-
-    while cond(state):
-        state = body(state)
-    return state
+    while True:
+        active = (state.size.sum(dim=-1) > 0) & (state.steps < max_steps) & ~state.overflow
+        on = active.cpu().numpy()
+        if not on.any():
+            return state
+        state = body(state, None if on.all() else active)
 
 
 def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineResult:
@@ -255,8 +269,11 @@ def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineRe
     return result_from_state(final, cfg)
 
 
-def result_from_state(final: EngineState, cfg: EngineConfig) -> EngineResult:
-    """Reduce a drained :class:`EngineState` to an :class:`EngineResult`."""
+def result_from_state(final: EngineState, cfg: EngineConfig, lane: int = 0) -> EngineResult:
+    """Reduce pack lane ``lane`` of a drained :class:`EngineState` to an
+    :class:`EngineResult`."""
+    final = EngineState(*(x[lane] for x in final))
+
     def host(t):
         return t.cpu().numpy()
 

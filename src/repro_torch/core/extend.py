@@ -17,11 +17,17 @@ half of ``repro.core.extend``; the backend names are ``repro``'s:
 
 Both are bit-identical on every :class:`StepLanes` field the engine
 consumes.  On CPU tensors the kernels run their plain versions.
+
+A step covers a whole **pack** of queries that share one target
+(`repro_torch.core.frontier`): their plan arrays are stacked along the
+position axis (:func:`make_pack_arrays`), each lane's child position is
+offset by its query's ``lane · p_pad``, and so one kernel launch per step
+serves every lane of the pack.  A single query is the pack of one.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Protocol, Tuple, TYPE_CHECKING
+from typing import NamedTuple, Optional, Protocol, Sequence, Tuple, TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -48,20 +54,24 @@ LATER_STEP_BACKENDS = {
 
 
 class PlanArrays(NamedTuple):
-    """Device-resident static plan arrays (see SearchPlan).
+    """Device-resident static plan arrays of a pack of ``L`` queries (see
+    SearchPlan), stacked along the position axis: query ``l``'s position
+    ``i`` is row ``l · p_pad + i``.
 
     ``rows`` is the flattened adjacency with the all-ones neutral row
     appended (what the kernels take); ``adj_bits`` is a view of it, so the
-    target is on the device once."""
+    target is on the device once, shared by the pack."""
 
-    order_valid: torch.Tensor  # [p_pad] bool (True for real positions)
-    parent_pos: torch.Tensor  # [p_pad, mp] int32
-    parent_dir: torch.Tensor  # [p_pad, mp] int32
-    parent_elab: torch.Tensor  # [p_pad, mp] int32
-    dom_bits: torch.Tensor  # [p_pad, w] int32
+    order_valid: torch.Tensor  # [L * p_pad] bool (True for real positions)
+    parent_pos: torch.Tensor  # [L * p_pad, mp] int32
+    parent_dir: torch.Tensor  # [L * p_pad, mp] int32
+    parent_elab: torch.Tensor  # [L * p_pad, mp] int32
+    dom_bits: torch.Tensor  # [L * p_pad, w] int32
     adj_bits: torch.Tensor  # [n_elab, 2, n_t, w] int32, a view of rows[:-1]
     rows: torch.Tensor  # [n_elab * 2 * n_t + 1, w] int32
-    n_p: int  # actual pattern size
+    n_p: torch.Tensor  # [L] int32 actual pattern size per query
+    p_pad: int  # padded positions per query
+    n_p_max: int  # the largest n_p of the pack
 
 
 def bits_to_tensor(bits: np.ndarray, device) -> torch.Tensor:
@@ -76,24 +86,43 @@ def upload_rows(adj_bits: np.ndarray, device) -> torch.Tensor:
 
 
 def make_plan_arrays(plan: SearchPlan, device, rows: Optional[torch.Tensor] = None) -> PlanArrays:
-    """Upload ``plan``.  ``rows`` optionally supplies an already uploaded
-    adjacency (:func:`upload_rows` of ``plan.adj_bits``), the dominant
-    transfer, so plans of one target share one copy."""
+    """Upload ``plan`` as a pack of one (see :func:`make_pack_arrays`)."""
+    return make_pack_arrays([plan], device, rows=rows)
+
+
+def make_pack_arrays(plans: Sequence[SearchPlan], device,
+                     rows: Optional[torch.Tensor] = None) -> PlanArrays:
+    """Upload the plans of one pack, stacked along the position axis.
+
+    The plans must share their padding and their target adjacency (one
+    ``adj_bits`` object, or equal ones): the pack reads one copy.  ``rows``
+    optionally supplies that copy already uploaded (:func:`upload_rows`),
+    the dominant transfer, so every plan of one target shares it."""
+    first = plans[0]
+    for p in plans[1:]:
+        if p.parent_pos.shape != first.parent_pos.shape or p.dom_bits.shape != first.dom_bits.shape:
+            raise ValueError("a pack's plans must share p_pad, max_parents and w")
+        if p.adj_bits is not first.adj_bits and not np.array_equal(p.adj_bits, first.adj_bits):
+            raise ValueError("a pack's plans must share one target adjacency")
     if rows is None:
-        rows = upload_rows(plan.adj_bits, device)
+        rows = upload_rows(first.adj_bits, device)
 
-    def i32(a):
-        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(device)
+    def cat_i32(name):
+        a = np.concatenate([np.asarray(getattr(p, name), dtype=np.int32) for p in plans])
+        return torch.from_numpy(a).to(device)
 
+    n_p = [p.n_p for p in plans]
     return PlanArrays(
-        order_valid=torch.from_numpy(plan.order >= 0).to(device),
-        parent_pos=i32(plan.parent_pos),
-        parent_dir=i32(plan.parent_dir),
-        parent_elab=i32(plan.parent_elab),
-        dom_bits=bits_to_tensor(plan.dom_bits, device),
-        adj_bits=rows[:-1].view(plan.adj_bits.shape),
+        order_valid=torch.from_numpy(np.concatenate([p.order >= 0 for p in plans])).to(device),
+        parent_pos=cat_i32("parent_pos"),
+        parent_dir=cat_i32("parent_dir"),
+        parent_elab=cat_i32("parent_elab"),
+        dom_bits=bits_to_tensor(np.concatenate([p.dom_bits for p in plans]), device),
+        adj_bits=rows[:-1].view(first.adj_bits.shape),
         rows=rows,
-        n_p=plan.n_p,
+        n_p=torch.tensor(n_p, dtype=torch.int32, device=device),
+        p_pad=first.p_pad,
+        n_p_max=max(n_p),
     )
 
 
@@ -120,13 +149,14 @@ def bit_row(v: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def compute_cand(
-    plan: PlanArrays, pos: torch.Tensor, map_: torch.Tensor, used: torch.Tensor
+    plan: PlanArrays, row: torch.Tensor, map_: torch.Tensor, used: torch.Tensor
 ) -> torch.Tensor:
-    """Candidate bitmaps ``[B, W]`` for order positions ``pos`` given the
-    mappings and used-bitmaps, in plain PyTorch:
-    ``dom[pos] ∧ ¬used ∧ ⋀_parents adj_bits[elab, dir, mapped_parent]``."""
+    """Candidate bitmaps ``[B, W]`` for the stacked plan rows ``row``
+    (``lane · p_pad + position``) given the mappings and used-bitmaps, in
+    plain PyTorch:
+    ``dom[row] ∧ ¬used ∧ ⋀_parents adj_bits[elab, dir, mapped_parent]``."""
     n_t = plan.adj_bits.shape[2]
-    safe_pos = pos.clamp(0, plan.dom_bits.shape[0] - 1).long()
+    safe_pos = row.long()
     cand = plan.dom_bits[safe_pos] & ~used
     pp, pd, pl = (a[safe_pos] for a in (plan.parent_pos, plan.parent_dir, plan.parent_elab))
     for j in range(pp.shape[1]):
@@ -168,7 +198,8 @@ class StepLanes(NamedTuple):
 
 
 class StepBackend(Protocol):
-    """One expansion over a flat batch of popped lanes."""
+    """One expansion over a flat batch of popped lanes: the ``V·E`` lanes of
+    each query of the pack, query after query."""
 
     name: str
 
@@ -176,67 +207,87 @@ class StepBackend(Protocol):
         ...
 
 
-class JnpStepBackend:
+class _PackLanes:
+    """Per flat lane of a pack's step: the stacked-plan row offset of its
+    query (``lane · p_pad``) and that query's pattern size."""
+
+    def __init__(self, cfg: "EngineConfig", plan: PlanArrays):
+        self.plan = plan
+        self.p_pad, self.w = plan.p_pad, plan.dom_bits.shape[1]
+        per_query = cfg.n_workers * cfg.expand_width
+        lane = torch.arange(plan.n_p.shape[0], device=plan.n_p.device).repeat_interleave(per_query)
+        self.row_base = (lane * self.p_pad).to(torch.int32)
+        self.n_p = plan.n_p[lane]
+
+    def rows_at(self, pos: torch.Tensor) -> torch.Tensor:
+        """Stacked plan rows of each lane's order position ``pos``."""
+        return self.row_base + pos.clamp(0, self.p_pad - 1)
+
+
+class JnpStepBackend(_PackLanes):
     """Plain PyTorch step (``repro``'s loose-ops reference backend); with
     ``cfg.use_pallas`` the candidate AND runs the ``candidate_mask`` kernel."""
 
     name = "jnp"
 
     def __init__(self, cfg: "EngineConfig", plan: PlanArrays):
-        self.plan = plan
+        super().__init__(cfg, plan)
         self.use_kernel = cfg.use_pallas
-        self.p_pad, self.w = plan.dom_bits.shape
 
-    def _compute_cand(self, pos, map2, used2):
+    def _compute_cand(self, row, map2, used2):
         plan = self.plan
         if not self.use_kernel:
-            return compute_cand(plan, pos, map2, used2)
-        safe_pos = pos.clamp(0, self.p_pad - 1)
-        sp = safe_pos.long()
+            return compute_cand(plan, row, map2, used2)
+        r = row.long()
         row_idx = kops.flat_row_index(
-            plan.parent_pos[sp], plan.parent_dir[sp], plan.parent_elab[sp], map2,
+            plan.parent_pos[r], plan.parent_dir[r], plan.parent_elab[r], map2,
             plan.adj_bits.shape[2], plan.rows.shape[0] - 1,
         )
-        return kops.candidate_mask(plan.rows, plan.dom_bits, safe_pos.to(torch.int32),
+        return kops.candidate_mask(plan.rows, plan.dom_bits, row.to(torch.int32),
                                    row_idx, used2)
 
     def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
         valid, v, cand2 = pop_lowest_bit(cand)
         map2, used2 = _extend_payload(depth, map_, used, valid, v, self.p_pad, self.w)
-        is_match = valid & (depth + 1 >= self.plan.n_p)
+        is_match = valid & (depth + 1 >= self.n_p)
         want_child = valid & ~is_match
-        child = self._compute_cand(torch.where(want_child, depth + 1, 0), map2, used2)
+        child = self._compute_cand(self.rows_at(torch.where(want_child, depth + 1, 0)),
+                                   map2, used2)
         child = torch.where(want_child[:, None], child, 0)
         has_child = want_child & (child != 0).any(dim=-1)
         return StepLanes(valid, v, is_match, has_child, cand2, map2, used2, child)
 
 
-class PallasStepBackend:
+class PallasStepBackend(_PackLanes):
     """The fused step: one ``extend_step`` kernel launch per expansion.
 
     PyTorch only computes what the kernel's inputs need up front — the
     extracted ``v`` feeds the adjacency-row table — and the cheap ``map2`` /
-    ``used2`` payloads; all other ``w``-wide work is in the kernel."""
+    ``used2`` payloads; all other ``w``-wide work is in the kernel.
+
+    The kernel takes one pattern size; a pack's queries may differ, so each
+    lane's depth is shifted by ``n_p_max - n_p`` of its query, which keeps
+    ``depth + 1 >= n_p`` (the only use of ``depth`` in the kernel) exact."""
 
     name = "pallas"
 
     def __init__(self, cfg: "EngineConfig", plan: PlanArrays):
-        self.plan = plan
-        self.p_pad, self.w = plan.dom_bits.shape
+        super().__init__(cfg, plan)
+        self.depth_shift = plan.n_p_max - self.n_p
 
     def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
         plan = self.plan
         valid, v, _ = pop_lowest_bit(cand)
         map2, used2 = _extend_payload(depth, map_, used, valid, v, self.p_pad, self.w)
-        child_pos = (depth + 1).clamp(0, self.p_pad - 1)
-        cp = child_pos.long()
+        child_row = self.rows_at(depth + 1)
+        cr = child_row.long()
         row_idx = kops.flat_row_index(
-            plan.parent_pos[cp], plan.parent_dir[cp], plan.parent_elab[cp], map2,
+            plan.parent_pos[cr], plan.parent_dir[cr], plan.parent_elab[cr], map2,
             plan.adj_bits.shape[2], plan.rows.shape[0] - 1,
         )
         cand2, child, meta = kops.extend_step(
-            plan.rows, plan.dom_bits, child_pos.to(torch.int32), row_idx,
-            depth.to(torch.int32), plan.n_p, used, cand,
+            plan.rows, plan.dom_bits, child_row.to(torch.int32), row_idx,
+            (depth + self.depth_shift).to(torch.int32), plan.n_p_max, used, cand,
         )
         return StepLanes(
             valid=meta[:, 0] != 0,
@@ -265,18 +316,27 @@ def make_step_backend(cfg: "EngineConfig", plan: PlanArrays) -> StepBackend:
 # ---------------------------------------------------------------------------
 
 def make_step_fn(cfg: "EngineConfig", plan: PlanArrays):
-    """Build one full expansion step ``EngineState -> EngineState``.
+    """Build one full expansion step ``(EngineState, active) -> EngineState``
+    over every lane of a pack.
 
-    The returned state shares (and the step updates in place) the stack
-    tensors of the state it was given."""
+    ``active`` (``[L]`` bool, or None for all) freezes the lanes where it
+    is False, counters included, as ``repro``'s vmapped ``while_loop``
+    freezes a lane whose condition is false.  The returned state shares
+    (and the step updates in place) the stack tensors of the state it was
+    given."""
     backend = make_step_backend(cfg, plan)
     e = cfg.expand_width
 
-    def step(st: EngineState) -> EngineState:
-        v_loc, s_cap = st.st_depth.shape
+    def step(st: EngineState, active: Optional[torch.Tensor] = None) -> EngineState:
+        n_lanes, v_q, s_cap = st.st_depth.shape
+        v_loc = n_lanes * v_q  # the pack's workers as one flat axis (views)
+        st_depth, st_map, st_used, st_cand = (
+            x.flatten(0, 1) for x in (st.st_depth, st.st_map, st.st_used, st.st_cand))
+        size = st.size.flatten()
         pop = frontier.pop_top_k(
-            st.st_depth, st.st_map, st.st_used, st.st_cand,
-            st.base, st.size, e, store_used=cfg.store_used,
+            st_depth, st_map, st_used, st_cand,
+            st.base.flatten(), size, e, store_used=cfg.store_used,
+            active=None if active is None else active.repeat_interleave(v_q),
         )
 
         b = v_loc * e
@@ -297,32 +357,38 @@ def make_step_fn(cfg: "EngineConfig", plan: PlanArrays):
             sh(x) for x in (lanes.cand2, lanes.map2, lanes.used2, lanes.child_cand)
         )
 
-        states = st.states + valid.sum(dim=1, dtype=torch.int32)
-        exp_depth = st.exp_depth + torch.where(valid, pop.depth, 0).sum(dim=1, dtype=torch.int32)
-        matches = st.matches + is_match.sum(dim=1, dtype=torch.int32)
+        def per_worker(x):
+            return x.sum(dim=1, dtype=torch.int32).view(n_lanes, v_q)
+
+        states = st.states + per_worker(valid)
+        exp_depth = st.exp_depth + per_worker(torch.where(valid, pop.depth, 0))
+        matches = st.matches + per_worker(is_match)
 
         if cfg.collect_matches > 0:
             # the step's m-th match of a worker goes to ring slot
             # (matches + m) % mcap of its match buffer
-            mbuf = st.match_buf
+            mbuf = st.match_buf.flatten(0, 1)
             mcap = mbuf.shape[1]
             m_int = is_match.to(torch.int32)
             m_prefix = torch.cumsum(m_int, dim=1).to(torch.int32) - m_int
             n_out = min(e, mcap)
             src, take = frontier.invert_slots(torch.where(is_match, m_prefix, -1), n_out)
             vidx = torch.arange(v_loc, device=src.device)[:, None]
-            slots = (st.matches[:, None] + torch.arange(n_out, device=src.device)[None, :]) % mcap
+            slots = (st.matches.flatten()[:, None]
+                     + torch.arange(n_out, device=src.device)[None, :]) % mcap
             frontier.write_slots(mbuf, vidx, slots, map2[vidx, src], take)
 
         parent_keep = pop.lane_on & (cand2 != 0).any(dim=-1)
         new_size = frontier.push_entries(
-            st.st_depth, st.st_map, st.st_used, st.st_cand, st.base, st.size,
+            st_depth, st_map, st_used, st_cand, st.base.flatten(), size,
             pop.k, parent_keep, has_child,
             pop.depth, pop.map, pop.used, cand2,
             pop.depth + 1, map2, used2, child_cand,
             store_used=cfg.store_used,
-        )
+        ).view(n_lanes, v_q)
         overflow = st.overflow | frontier.overflowed(new_size, s_cap)
+        if active is not None:  # a frozen lane keeps its flag, as its stacks
+            overflow = torch.where(active, overflow, st.overflow)
         return st._replace(
             size=new_size, matches=matches, states=states,
             exp_depth=exp_depth, overflow=overflow,

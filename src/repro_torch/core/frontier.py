@@ -12,6 +12,12 @@ Unlike the JAX package, the stack tensors are updated **in place**: a
 functional update would copy every ``[V, S, W]`` stack each step.  The
 pushes write through :func:`write_slots`, which reads back the old value
 where no entry is pushed, so each slot is written by at most one source.
+
+Every :class:`EngineState` tensor carries a leading **pack axis** ``L``:
+one lane per query of a pack (``repro`` vmaps its engine over packs
+instead).  A single query is a pack of one.  :func:`pop_top_k` and
+:func:`push_entries` see the ``L·V`` workers of a pack as one flat worker
+axis; only the steal round keeps the lanes apart.
 """
 
 from __future__ import annotations
@@ -29,21 +35,21 @@ if TYPE_CHECKING:  # engine imports extend imports frontier
 
 
 class EngineState(NamedTuple):
-    st_depth: torch.Tensor  # [V, S] int32
-    st_map: torch.Tensor  # [V, S, P] int32
-    st_used: torch.Tensor  # [V, S, W] int32 ([V, S, 1] without store_used)
-    st_cand: torch.Tensor  # [V, S, W] int32
-    base: torch.Tensor  # [V] int32 ring-buffer base
-    size: torch.Tensor  # [V] int32
-    matches: torch.Tensor  # [V] int32
-    states: torch.Tensor  # [V] int32
-    exp_depth: torch.Tensor  # [V] int32 summed depth of expanded entries
-    steals: torch.Tensor  # [V] int32 entries received
-    steal_depth: torch.Tensor  # [V] int32 summed depth of stolen entries
-    steal_rounds: torch.Tensor  # [] int32 rounds with any transfer
-    steps: torch.Tensor  # [] int32
-    overflow: torch.Tensor  # [] bool — stack high-watermark breached
-    match_buf: torch.Tensor  # [V, Mcap, P] int32 (Mcap >= 1)
+    st_depth: torch.Tensor  # [L, V, S] int32
+    st_map: torch.Tensor  # [L, V, S, P] int32
+    st_used: torch.Tensor  # [L, V, S, W] int32 ([L, V, S, 1] without store_used)
+    st_cand: torch.Tensor  # [L, V, S, W] int32
+    base: torch.Tensor  # [L, V] int32 ring-buffer base
+    size: torch.Tensor  # [L, V] int32
+    matches: torch.Tensor  # [L, V] int32
+    states: torch.Tensor  # [L, V] int32
+    exp_depth: torch.Tensor  # [L, V] int32 summed depth of expanded entries
+    steals: torch.Tensor  # [L, V] int32 entries received
+    steal_depth: torch.Tensor  # [L, V] int32 summed depth of stolen entries
+    steal_rounds: torch.Tensor  # [L] int32 rounds with any transfer
+    steps: torch.Tensor  # [L] int32
+    overflow: torch.Tensor  # [L] bool — stack high-watermark breached
+    match_buf: torch.Tensor  # [L, V, Mcap, P] int32 (Mcap >= 1)
 
 
 class Popped(NamedTuple):
@@ -113,6 +119,7 @@ def pop_top_k(
     size: torch.Tensor,
     expand_width: int,
     store_used: bool = True,
+    active: Optional[torch.Tensor] = None,
 ) -> Popped:
     """Select each worker's top ``expand_width`` entries (top-first lanes).
 
@@ -121,6 +128,8 @@ def pop_top_k(
     entry re-emits at most a parent + a child), so a full ring freezes
     rather than corrupts.  Popping is logical only: ``size`` is adjusted by
     the subsequent :func:`push_entries`, which reuses the vacated slots.
+    ``active`` (``[V]`` bool) freezes the workers where it is False:
+    they pop nothing, so the step leaves them unchanged.
     """
     v_loc, s_cap = st_depth.shape
     w = st_cand.shape[2]
@@ -128,6 +137,8 @@ def pop_top_k(
     e = expand_width
 
     k = torch.minimum(size.clamp(max=e), s_cap - size)
+    if active is not None:
+        k = torch.where(active, k, 0)
     lane = torch.arange(e, dtype=torch.int32, device=dev)[None, :]
     lane_on = lane < k[:, None]
     pos = size[:, None] - 1 - lane  # top-first
@@ -204,17 +215,24 @@ def push_entries(
 
 
 def overflowed(size: torch.Tensor, s_cap: int) -> torch.Tensor:
-    """High-watermark check: a completely full ring (``size == s_cap``)
-    counts as overflow — the pop guard then freezes the worker, silently
-    undercounting, which is why the session retries with a doubled cap
+    """High-watermark check over the last (worker) axis of ``size``: a
+    completely full ring (``size == s_cap``) counts as overflow — the pop
+    guard then freezes the worker, silently undercounting, which is why the
+    session retries with a doubled cap
     (`repro_torch.core.session.Enumerator.run`)."""
-    return (size > s_cap - 1).any()
+    return (size > s_cap - 1).any(dim=-1)
 
 
 def init_state(plan: SearchPlan, cfg: "EngineConfig", device) -> EngineState:
-    """Initial work distribution: the paper's §3.3 vertex seeding
-    (``cfg.root_seeding == "vertex"``, the only mode ported so far)."""
+    """Initial work distribution of one query, as a pack of one lane: the
+    paper's §3.3 vertex seeding (``cfg.root_seeding == "vertex"``, the only
+    mode ported so far)."""
     return _init_vertex_state(plan, cfg, device)
+
+
+def stack_states(states) -> EngineState:
+    """Join single- or multi-lane states of one shape into one pack."""
+    return EngineState(*(torch.cat(xs, dim=0) for xs in zip(*states)))
 
 
 def _init_vertex_state(
@@ -240,17 +258,17 @@ def _init_vertex_state(
         root_cands[:] = 0
 
     def zeros(*shape, dtype=torch.int32):
-        return torch.zeros(shape, dtype=dtype, device=device)
+        return torch.zeros((1,) + shape, dtype=dtype, device=device)
 
     st_cand = zeros(v, s_cap, w)
-    st_cand[:, 0] = torch.from_numpy(root_cands.view(np.int32)).to(device)
+    st_cand[0, :, 0] = torch.from_numpy(root_cands.view(np.int32)).to(device)
     return EngineState(
         st_depth=zeros(v, s_cap),
-        st_map=torch.full((v, s_cap, p_pad), -1, dtype=torch.int32, device=device),
+        st_map=torch.full((1, v, s_cap, p_pad), -1, dtype=torch.int32, device=device),
         st_used=zeros(v, s_cap, w if cfg.store_used else 1),
         st_cand=st_cand,
         base=zeros(v),
-        size=torch.from_numpy(root_cands.any(axis=1).astype(np.int32)).to(device),
+        size=torch.from_numpy(root_cands.any(axis=1).astype(np.int32)).to(device)[None],
         matches=zeros(v),
         states=zeros(v),
         exp_depth=zeros(v),
@@ -259,5 +277,5 @@ def _init_vertex_state(
         steal_rounds=zeros(),
         steps=zeros(),
         overflow=zeros(dtype=torch.bool),
-        match_buf=torch.full((v, mcap, p_pad), -1, dtype=torch.int32, device=device),
+        match_buf=torch.full((1, v, mcap, p_pad), -1, dtype=torch.int32, device=device),
     )

@@ -1,6 +1,6 @@
 """Prepared-query session API for subgraph enumeration (dense subset).
 
-A port of the dense single-query half of ``repro.core.session``:
+A port of the dense half of ``repro.core.session``:
 
 * :class:`SubgraphIndex` — a prepared target: the :class:`PackedGraph`
   bitmaps plus label/degree metadata, built once and reused across queries.
@@ -9,18 +9,31 @@ A port of the dense single-query half of ``repro.core.session``:
   128}``, ``max_parents = 8``).
 * :class:`Enumerator` — the session: an :class:`EngineConfig`, a device,
   and a cache of each index's adjacency on that device (the dominant
-  upload), with ``run(query)`` and its doubled-``stack_cap`` overflow retry.
+  upload), with
 
-``repro`` also batches preparation and execution (``prepare_batch``,
-``run_batch``, ``stream``, ``run_pack``) and maintains results under graph
-edits (``run_delta``); those raise ``NotImplementedError`` here, naming the
-ROADMAP item that brings them.
+    - ``prepare(pattern)``           — host (numpy) preprocessing;
+    - ``prepare_batch(patterns)``    — the AC ⇄ FC domain fixpoint on the
+      device for whole same-bucket pattern batches
+      (`repro_torch.core.domains.compute_domains_batch`), the default for
+      raw patterns given to the batched methods;
+    - ``run(query)``                 — one query, with its doubled
+      ``stack_cap`` overflow retry;
+    - ``run_batch(queries)`` / ``stream(queries)`` — LPT-balanced packs of
+      same-key queries, each pack one engine run whose steps launch one
+      kernel for every lane of the pack; ``run_pack`` runs one given pack.
+
+Maintaining results under graph edits (``run_delta``) raises
+``NotImplementedError``, naming the ROADMAP item that brings it.  PyTorch
+compiles nothing here, so ``repro``'s compile cache, its counters and
+``warm`` have no counterpart.
 
 Typical use::
 
     index = SubgraphIndex.build(target)             # once per target
     enum = Enumerator(index, n_workers=16)          # on the CUDA card
     ms = enum.run(enum.prepare(pattern))
+    for ms in enum.stream(patterns):                # device preprocessing
+        print(ms.name, ms.matches)
 """
 
 from __future__ import annotations
@@ -30,17 +43,19 @@ import dataclasses
 import hashlib
 import time
 import warnings
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import domains as dom_mod
 from repro_torch.core import engine as eng
 from repro_torch.core import extend
 from repro_torch.core.engine import EngineConfig, EngineResult
-from repro_torch.core.frontier import init_state
-from repro_torch.core.graph import Graph, PackedGraph
-from repro_torch.core.plan import SearchPlan, build_plan
+from repro_torch.core.frontier import EngineState, init_state, stack_states
+from repro_torch.core.graph import Graph, PackedGraph, popcount
+from repro_torch.core.plan import SearchPlan, build_plan, variant_flags
+from repro_torch.core.scheduler import balance_assignment
 
 # Padded pattern-position buckets: every plan's ``p_pad`` snaps up to one of
 # these (beyond the last, to multiples of it), as in ``repro``, so plans of
@@ -66,6 +81,24 @@ def snap_p_pad(n_p: int) -> int:
             return b
     top = SHAPE_BUCKETS[-1]
     return ((n_p + top - 1) // top) * top
+
+
+def snap_arc_pad(n_arcs: int) -> int:
+    """Arc-slot bucket for the device domain engine: multiples of 8."""
+    return max(8, ((n_arcs + 7) // 8) * 8)
+
+
+def snap_loop_pad(n_loops: int) -> int:
+    """Self-loop-slot bucket: 1 (the loop-free common case) or multiples
+    of 4."""
+    return 1 if n_loops == 0 else ((n_loops + 3) // 4) * 4
+
+
+def snap_batch_pad(n: int) -> int:
+    """Pattern-batch lane bucket: the next power of two, as in ``repro``.
+    The lanes beyond the batch are frozen from the start, so they cost no
+    sweep."""
+    return 1 << max(n - 1, 0).bit_length()
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -152,6 +185,13 @@ class Query:
     index: Optional[SubgraphIndex] = dataclasses.field(default=None, repr=False)
 
     @property
+    def bucket(self) -> Tuple[int, int, int, int, int]:
+        """The shape key ``(p_pad, max_parents, n_t, w, n_elab)``: queries of
+        one bucket stack into one pack (:meth:`Enumerator.coalesce_key`)."""
+        p = self.plan
+        return (p.p_pad, p.max_parents, p.n_t, p.w, p.n_edge_labels)
+
+    @property
     def index_fingerprint(self) -> str:
         """Fingerprint of the index this query binds to ("" if none)."""
         return self.index.fingerprint if self.index is not None else ""
@@ -186,10 +226,15 @@ def prepare_query(
         pattern=pattern,
         plan=plan,
         variant=variant,
-        name=name or f"q{pattern.n}n{pattern.m}m",
+        name=name or _default_name(pattern),
         prepare_s=time.perf_counter() - t0,
         index=index,
     )
+
+
+def _default_name(pattern: Graph) -> str:
+    """Default query name, shared by prepare_query and prepare_batch."""
+    return f"q{pattern.n}n{pattern.m}m"
 
 
 # ---------------------------------------------------------------------------
@@ -275,9 +320,14 @@ class Enumerator:
 
     ``device=None`` means the CUDA card; without one the constructor raises
     and asks for ``device="cpu"``.  The session uploads each index's
-    adjacency once and keeps the two most recent uploads;
+    adjacency once and keeps the two most recent uploads; the domain
+    fixpoint of :meth:`prepare_batch` reads the same upload.
     :meth:`cache_stats` counts uploads and reuses.  PyTorch compiles
     nothing here, so ``repro``'s compile counters have no counterpart.
+
+    ``domain_backend`` picks where :meth:`prepare_batch` (and so the
+    batched methods, for raw patterns) computes domains: ``"device"`` (the
+    default) or ``"numpy"`` (per-query host preprocessing).
     """
 
     def __init__(
@@ -286,6 +336,7 @@ class Enumerator:
         config: Optional[EngineConfig] = None,
         variant: str = "ri-ds-si-fc",
         mesh=None,
+        domain_backend: str = "device",
         memory_budget_bytes: Optional[int] = None,
         device=None,
         **config_kwargs,
@@ -294,14 +345,21 @@ class Enumerator:
             raise _not_ported("Enumerator(mesh=...)", "11 (multi-device)")
         if memory_budget_bytes is not None:
             raise _not_ported("Enumerator(memory_budget_bytes=...)", "9 (out-of-core)")
+        if domain_backend not in ("device", "numpy"):
+            raise ValueError(
+                f"domain_backend must be 'device' or 'numpy', got {domain_backend!r}"
+            )
         cfg = config or EngineConfig(**config_kwargs)
         if config is not None and config_kwargs:
             cfg = dataclasses.replace(config, **config_kwargs)
         self.config = cfg
         self.variant = variant
+        self.domain_backend = domain_backend
         self.device = eng.resolve_device(device)
         self.index = SubgraphIndex.build(index) if index is not None else None
         self._rows: "collections.OrderedDict[str, torch.Tensor]" = collections.OrderedDict()
+        # the domain fixpoint's target arrays, per cached adjacency upload
+        self._dom_targets: Dict[str, dom_mod.TargetDomainArrays] = {}
         self.uploads = 0
         self.cache_hits = 0
 
@@ -315,25 +373,44 @@ class Enumerator:
 
     cache_info = cache_stats
 
-    def _plan_arrays(self, query: Query) -> extend.PlanArrays:
-        """The query's plan on the device, with its index's adjacency
-        uploaded once per index version (hand-built queries without an
-        index upload their own)."""
-        plan = query.plan
-        fp = query.index_fingerprint
-        if not fp:
-            return extend.make_plan_arrays(plan, self.device)
+    def _adjacency_rows(self, fp: str, adj_bits: np.ndarray) -> torch.Tensor:
+        """The kernels' flattened adjacency of index version ``fp`` on the
+        device, uploaded once (:func:`~repro_torch.core.extend.upload_rows`)."""
         rows = self._rows.get(fp)
         if rows is None:
-            rows = extend.upload_rows(plan.adj_bits, self.device)
+            rows = extend.upload_rows(adj_bits, self.device)
             self._rows[fp] = rows
             self.uploads += 1
             while len(self._rows) > _ADJ_CACHE_ENTRIES:
-                self._rows.popitem(last=False)
+                old, _ = self._rows.popitem(last=False)
+                self._dom_targets.pop(old, None)
         else:
             self._rows.move_to_end(fp)
             self.cache_hits += 1
-        return extend.make_plan_arrays(plan, self.device, rows=rows)
+        return rows
+
+    def _plan_arrays(self, queries: Sequence[Query]) -> extend.PlanArrays:
+        """The plans of a pack (one coalesce key) on the device, with their
+        index's adjacency uploaded once per index version (hand-built
+        queries without an index upload their own)."""
+        plans = [q.plan for q in queries]
+        fp = queries[0].index_fingerprint
+        if not fp:
+            return extend.make_pack_arrays(plans, self.device)
+        rows = self._adjacency_rows(fp, plans[0].adj_bits)
+        return extend.make_pack_arrays(plans, self.device, rows=rows)
+
+    def _target_domain_arrays(self, index: SubgraphIndex) -> dom_mod.TargetDomainArrays:
+        """The domain fixpoint's target arrays for ``index``: its planes are
+        a view of the session's adjacency upload (``rows[:-1]`` as
+        ``[2 · n_elab, n_t, w]``), so the target is on the device once."""
+        rows = self._adjacency_rows(index.fingerprint, index.packed.adj_bits)
+        arrays = self._dom_targets.get(index.fingerprint)
+        if arrays is None:
+            adj_flat = rows[:-1].view(2 * index.n_edge_labels, index.n, index.w)
+            arrays = dom_mod.target_domain_arrays(index.packed, adj_flat=adj_flat)
+            self._dom_targets[index.fingerprint] = arrays
+        return arrays
 
     # -- preparation -------------------------------------------------------
 
@@ -355,8 +432,106 @@ class Enumerator:
         return prepare_query(pattern, idx, variant=variant or self.variant, name=name,
                              seed_edge=seed_edge)
 
-    def prepare_batch(self, patterns, variant=None, names=None, index=None, backend=None):
-        raise _not_ported("Enumerator.prepare_batch (device domain fixpoint)", "5")
+    def prepare_batch(
+        self,
+        patterns: Sequence[Graph],
+        variant: Optional[str] = None,
+        names: Optional[Sequence[str]] = None,
+        index: Union[SubgraphIndex, Graph, PackedGraph, None] = None,
+        backend: Optional[str] = None,
+    ) -> List[Query]:
+        """Prepare a batch of patterns with **device** domain preprocessing:
+        patterns are grouped by domain bucket ``(p_pad, arc_pad,
+        loop_pad)`` and each group's AC ⇄ FC fixpoint runs as one batched
+        fixpoint (:func:`~repro_torch.core.domains.compute_domains_batch`;
+        with ``use_pallas`` its arc tests and popcounts are the K5 and K3
+        kernels).  Results are bit-identical to per-query :meth:`prepare`
+        (the numpy oracle).  ``backend='numpy'`` (or
+        ``Enumerator(domain_backend='numpy')``) runs per-query host
+        preprocessing instead.
+        """
+        idx = index if index is not None else self.index
+        if idx is None:
+            raise ValueError(
+                "Enumerator has no default SubgraphIndex; pass index= to "
+                "prepare_batch() or construct Enumerator(index, ...)"
+            )
+        idx = SubgraphIndex.build(idx)
+        variant = variant or self.variant
+        patterns = list(patterns)
+        if names is not None and len(names) != len(patterns):
+            raise ValueError(
+                f"names has {len(names)} entries for {len(patterns)} patterns"
+            )
+
+        def name_of(i, p):
+            return names[i] if names is not None else _default_name(p)
+
+        backend = backend or self.domain_backend
+        if backend == "numpy":
+            return [
+                self.prepare(p, variant=variant, name=name_of(i, p), index=idx)
+                for i, p in enumerate(patterns)
+            ]
+
+        flags = variant_flags(variant)
+        groups: Dict[tuple, List[int]] = {}
+        for i, p in enumerate(patterns):
+            n_p, n_a, n_l = dom_mod.domain_bucket(p)
+            key = (snap_p_pad(n_p), snap_arc_pad(n_a), snap_loop_pad(n_l))
+            groups.setdefault(key, []).append(i)
+
+        out: List[Optional[Query]] = [None] * len(patterns)
+        tgt_arrays = self._target_domain_arrays(idx)
+        for (p_pad, a_pad, l_pad), idxs in groups.items():
+            t0 = time.perf_counter()
+            doms = dom_mod.compute_domains_batch(
+                [patterns[i] for i in idxs],
+                idx.packed,
+                use_ac=flags["use_ac"],
+                use_fc=flags["use_fc"],
+                interleave=flags["interleave"],
+                use_pallas=self.config.use_pallas,
+                p_pad=p_pad,
+                arc_pad=a_pad,
+                loop_pad=l_pad,
+                batch_pad=snap_batch_pad(len(idxs)),
+                tgt_arrays=tgt_arrays,
+            )
+            dom_s = (time.perf_counter() - t0) / max(len(idxs), 1)
+            for i, dres in zip(idxs, doms):
+                t1 = time.perf_counter()
+                plan = build_plan(
+                    patterns[i],
+                    idx.packed,
+                    variant=variant,
+                    p_pad=snap_p_pad(patterns[i].n),
+                    max_parents=DEFAULT_MAX_PARENTS,
+                    domains=dres,
+                )
+                out[i] = Query(
+                    pattern=patterns[i],
+                    plan=plan,
+                    variant=variant,
+                    name=name_of(i, patterns[i]),
+                    prepare_s=dom_s + (time.perf_counter() - t1),
+                    index=idx,
+                )
+        return out  # type: ignore[return-value]
+
+    def _coerce(self, q: Union[Query, Graph]) -> Query:
+        return q if isinstance(q, Query) else self.prepare(q)
+
+    def _coerce_all(self, queries: Iterable[Union[Query, Graph]]) -> List[Query]:
+        """Coerce a mixed Query/Graph sequence; raw patterns go through the
+        batched device preprocessing path in one sweep."""
+        qs = list(queries)
+        todo = [i for i, q in enumerate(qs) if not isinstance(q, Query)]
+        if todo:
+            prepared = self.prepare_batch([qs[i] for i in todo])
+            for i, q in zip(todo, prepared):
+                qs[i] = q
+        return qs  # type: ignore[return-value]
 
     # -- execution ---------------------------------------------------------
 
@@ -369,7 +544,7 @@ class Enumerator:
         warning; ``MatchSet.retries`` records it).  If the doubled cap still
         overflows, a ``RuntimeError`` asks for an explicit budget.
         """
-        query = query if isinstance(query, Query) else self.prepare(query)
+        query = self._coerce(query)
         if not query.plan.satisfiable:
             return self._matchset(query, -1, _empty_engine_result(), 0.0)
         cfg = self.config
@@ -385,8 +560,8 @@ class Enumerator:
         return self._matchset(query, -1, res, match_s, retries=retries)
 
     def _run_single(self, cfg: EngineConfig, query: Query) -> EngineResult:
-        """One engine invocation (no retry)."""
-        arrays = self._plan_arrays(query)
+        """One engine invocation, a pack of one (no retry)."""
+        arrays = self._plan_arrays([query])
         state = init_state(query.plan, cfg, self.device)
         return eng.result_from_state(eng._engine_loop(cfg, arrays, state), cfg)
 
@@ -414,14 +589,126 @@ class Enumerator:
     def run_delta(self, query, old_matches, delta):
         raise _not_ported("Enumerator.run_delta (dynamic graphs)", "10")
 
-    def run_batch(self, queries):
-        raise _not_ported("Enumerator.run_batch", "6 (session, batched half)")
+    # -- execution: packs ---------------------------------------------------
 
-    def stream(self, queries):
-        raise _not_ported("Enumerator.stream", "6 (session, batched half)")
+    def coalesce_key(self, query: Query, cfg: Optional[EngineConfig] = None) -> tuple:
+        """The pack-compatibility key of a query: queries with equal keys
+        stack lane for lane into one pack (same tensor shapes, one target).
+        ``stream``/``run_batch`` group by it.
 
-    def run_pack(self, queries, cfg=None):
-        raise _not_ported("Enumerator.run_pack", "6 (session, batched half)")
+        The key is the shape bucket ``(p_pad, max_parents, n_t, w,
+        n_elab)`` plus the query's index fingerprint — queries against
+        different contents never share a pack, since a pack reads one
+        adjacency.  ``cfg`` is accepted for ``repro``'s signature; the
+        dense keys do not depend on it.
+        """
+        return query.bucket + (query.index_fingerprint,)
+
+    def run_pack(
+        self,
+        queries: Sequence[Union[Query, Graph]],
+        pack_size: Optional[int] = None,
+        cfg: Optional[EngineConfig] = None,
+    ) -> List[MatchSet]:
+        """Execute queries that share one :meth:`coalesce_key` as packs of
+        ``pack_size`` lanes, returning one :class:`MatchSet` per query in
+        input order (``query_index`` is the input position).
+
+        No grouping or balancing — the caller has already decided the
+        pack; mixed keys raise.  Unsatisfiable queries get empty results
+        without touching the engine.  ``cfg`` overrides the session config;
+        overflowed lanes go through the doubled-``stack_cap`` single retry.
+        """
+        cfg = cfg or self.config
+        qs = self._coerce_all(queries)
+        pack_size = pack_size or max(len(qs), 1)
+        out: List[Optional[MatchSet]] = [None] * len(qs)
+        live: List[int] = []
+        for i, q in enumerate(qs):
+            if q.plan.satisfiable:
+                live.append(i)
+            else:
+                out[i] = self._matchset(q, i, _empty_engine_result(), 0.0)
+        if live:
+            keys = {self.coalesce_key(qs[i], cfg) for i in live}
+            if len(keys) > 1:
+                raise ValueError(
+                    f"run_pack requires one coalesce_key per pack, got {len(keys)}: "
+                    f"{sorted(keys)}"
+                )
+            for j in range(0, len(live), pack_size):
+                for ms in self._run_pack(live[j:j + pack_size], qs, cfg, pack_size):
+                    out[ms.query_index] = ms
+        return out  # type: ignore[return-value]
+
+    def stream(
+        self,
+        queries: Iterable[Union[Query, Graph]],
+        pack_size: int = 4,
+    ) -> Iterator[MatchSet]:
+        """Yield one :class:`MatchSet` per query as packs drain.
+
+        Queries are grouped by :meth:`coalesce_key`, LPT-balanced into packs
+        of ``pack_size`` (padded with inert lanes, as in ``repro``), and run
+        pack by pack; each finished pack yields its results at once.
+        ``MatchSet.query_index`` carries the position in the input.
+        """
+        qs: List[Query] = self._coerce_all(queries)
+        cfg = self.config
+        groups: Dict[tuple, List[int]] = {}
+        for i, q in enumerate(qs):
+            if not q.plan.satisfiable:
+                yield self._matchset(q, i, _empty_engine_result(), 0.0)
+            else:
+                groups.setdefault(self.coalesce_key(q, cfg), []).append(i)
+
+        for idxs in groups.values():
+            weights = [_predict_work(qs[i].plan) for i in idxs]
+            n_packs = max(1, (len(idxs) + pack_size - 1) // pack_size)
+            assignment = balance_assignment(weights, n_packs)
+            for pack_id in range(n_packs):
+                members = [i for i, a in zip(idxs, assignment) if a == pack_id]
+                # LPT balances weight, not count: an overloaded pack is split
+                # into pack_size chunks
+                for j in range(0, len(members), pack_size):
+                    yield from self._run_pack(members[j:j + pack_size], qs, cfg, pack_size)
+
+    def run_batch(
+        self,
+        queries: Sequence[Union[Query, Graph]],
+        pack_size: int = 4,
+    ) -> List[MatchSet]:
+        """Run a batch of queries; exactly one result per query, in order."""
+        queries = list(queries)
+        out: List[Optional[MatchSet]] = [None] * len(queries)
+        for ms in self.stream(queries, pack_size=pack_size):
+            out[ms.query_index] = ms
+        return out  # type: ignore[return-value]
+
+    def _run_pack(
+        self, members: List[int], qs: List[Query], cfg: EngineConfig, pack_size: int
+    ) -> Iterator[MatchSet]:
+        """Run one pack of same-key queries, padded to ``pack_size`` lanes
+        with inert ones (no work: frozen from the first round), and yield
+        its results.  Every step of the pack launches one kernel for all
+        its lanes."""
+        t0 = time.perf_counter()
+        pack = [qs[i] for i in members]
+        arrays = self._plan_arrays(pack + [pack[0]] * (pack_size - len(pack)))
+        states = [init_state(q.plan, cfg, self.device) for q in pack]
+        states += [_inert_state(states[0])] * (pack_size - len(pack))
+        final = eng._engine_loop(cfg, arrays, stack_states(states))
+        match_s = (time.perf_counter() - t0) / max(len(members), 1)
+        for lane, i in enumerate(members):
+            res = eng.result_from_state(final, cfg, lane)
+            if res.overflow:
+                # the pack undercounted this lane; go straight to the
+                # doubled-stack_cap single retry (re-running at the original
+                # cap would overflow again)
+                res = self._retry_overflowed(cfg, qs[i])
+                yield self._matchset(qs[i], i, res, match_s, retries=1)
+                continue
+            yield self._matchset(qs[i], i, res, match_s)
 
     # -- result assembly ---------------------------------------------------
 
@@ -457,6 +744,23 @@ class Enumerator:
             _match_buf=res.match_buf,
             _materialize=materialize,
         )
+
+
+def _predict_work(plan: SearchPlan) -> float:
+    """Cheap work proxy: product of the first few domain sizes (the weight
+    of LPT pack balancing)."""
+    sizes = popcount(plan.dom_bits[: min(plan.n_p, 4)])
+    return float(np.prod(np.maximum(sizes, 1), dtype=np.float64))
+
+
+def _inert_state(template: EngineState) -> EngineState:
+    """A copy of ``template`` with no work: size 0, empty candidate bitmaps.
+    It pads a pack to its lane count; the round loop freezes such a lane
+    before its first step."""
+    return template._replace(
+        size=torch.zeros_like(template.size),
+        st_cand=torch.zeros_like(template.st_cand),
+    )
 
 
 # Process-wide sessions for the one-shot wrapper: one Enumerator (and so one

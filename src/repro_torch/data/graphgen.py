@@ -125,11 +125,16 @@ def make_collection(
     patterns_per_target: int = 3,
     scale: float = 1.0,
     seed: int = 0,
+    n_targets: Optional[int] = None,
 ) -> List[Instance]:
-    """Scaled-down analogue of one of the paper's collections."""
-    n_targets, n, m, npl, dist = COLLECTIONS[name]
+    """Scaled-down analogue of one of the paper's collections.
+
+    ``n_targets`` keeps only the first targets (default: all of the
+    collection's); each target and its patterns depend only on ``seed`` and
+    the target's position, so they are the same either way."""
+    all_targets, n, m, npl, dist = COLLECTIONS[name]
     out: List[Instance] = []
-    for t in range(n_targets):
+    for t in range(all_targets if n_targets is None else min(n_targets, all_targets)):
         tn = max(32, int(n * scale))
         tm = max(tn, int(m * scale))
         n_labels = max(2, round(tn / npl))

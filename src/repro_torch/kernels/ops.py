@@ -15,11 +15,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import candidate_mask as _cm
+from repro_torch.kernels import domain_ac as _ac
 from repro_torch.kernels import extend_step as _es
+from repro_torch.kernels import popcount_reduce as _pc
 from repro_torch.kernels import ref as kref
 
 flatten_adj_rows = _cm.flatten_adj_rows
 flat_row_index = _cm.flat_row_index
+pack_bits = kref.pack_bits_ref
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -46,11 +49,39 @@ def extend_step(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand):
     return kref.extend_step_ref(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
 
 
+def popcount_rows(bits) -> torch.Tensor:
+    """K3: per-row popcount ``[n, w] -> [n]`` int32
+    (see `repro_torch.kernels.popcount_reduce`)."""
+    if _on_card(bits):
+        return _pc.popcount_rows_cuda(bits)
+    return kref.popcount_rows_ref(bits)
+
+
+def adjacency_any(rows, mask) -> torch.Tensor:
+    """K5: ``any(rows[t] ∧ mask)`` per row, ``[n_t]`` int32
+    (see `repro_torch.kernels.domain_ac`)."""
+    if _on_card(rows):
+        return _ac.adjacency_any_cuda(rows, mask)
+    return kref.adjacency_any_ref(rows, mask)
+
+
+def arc_any_sweep(adj_flat, arc_row, masks) -> torch.Tensor:
+    """K4: ``any(adj_flat[arc_row[a], t] ∧ masks[a])``, ``[n_arcs, n_t]``
+    int32 (see `repro_torch.kernels.domain_ac`)."""
+    if _on_card(masks):
+        return _ac.arc_any_sweep_cuda(adj_flat, arc_row, masks)
+    return kref.arc_any_sweep_ref(adj_flat, arc_row, masks)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {"extend_step": _es.launches, "candidate_mask": _cm.launches}
+    return {"extend_step": _es.launches, "candidate_mask": _cm.launches,
+            "popcount_rows": _pc.launches, **_ac.launches}
 
 
 def reset_launch_counts() -> None:
     _es.launches = 0
     _cm.launches = 0
+    _pc.launches = 0
+    for name in _ac.launches:
+        _ac.launches[name] = 0

@@ -2,7 +2,8 @@
 they share.
 
 Each function computes exactly what its kernel computes
-(`repro_torch.kernels.candidate_mask`, `repro_torch.kernels.extend_step`)
+(`repro_torch.kernels.candidate_mask`, `repro_torch.kernels.extend_step`,
+`repro_torch.kernels.popcount_reduce`, `repro_torch.kernels.domain_ac`)
 and mirrors ``repro.kernels.ref``.  The kernel wrappers run these on CPU
 tensors; the tests hold them against the JAX package's oracles, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
@@ -111,3 +112,42 @@ def extend_step_ref(
         dim=1,
     )
     return cand2, child, meta
+
+
+def popcount_rows_ref(bits: torch.Tensor) -> torch.Tensor:
+    """Per-row popcount of ``[n, w]`` bitmaps -> ``[n]`` int32."""
+    return popcount32(bits).sum(dim=-1, dtype=torch.int32)
+
+
+def adjacency_any_ref(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Per-row "does ``rows[t] ∧ mask`` have any set bit" — the inner test
+    of RI-DS arc consistency.  ``[n_t, w] × [w] -> [n_t]`` int32 in {0, 1}."""
+    return ((rows & mask[None, :]) != 0).any(dim=-1).to(torch.int32)
+
+
+def arc_any_sweep_ref(
+    adj_flat: torch.Tensor,  # [n_planes, n_t, w] int32
+    arc_row: torch.Tensor,  # [n_arcs] int32 plane index per arc
+    masks: torch.Tensor,  # [n_arcs, w] int32 (D(q) bitmap per arc)
+) -> torch.Tensor:
+    """All arcs of one AC sweep: ``out[a, t] = any(adj_flat[arc_row[a], t]
+    ∧ masks[a])`` -> ``[n_arcs, n_t]`` int32.  One arc at a time, so the
+    ``[n_arcs, n_t, w]`` gather is never materialized."""
+    out = torch.empty((masks.shape[0], adj_flat.shape[1]), dtype=torch.int32,
+                      device=masks.device)
+    for a, r in enumerate(arc_row.tolist()):
+        out[a] = adjacency_any_ref(adj_flat[r], masks[a])
+    return out
+
+
+def pack_bits_ref(flags: torch.Tensor, w: int) -> torch.Tensor:
+    """Pack ``[..., n]`` {0, 1} flags into ``[..., w]`` int32 words, bit
+    ``t % 32`` of word ``t // 32`` for flag ``t`` (LSB first)."""
+    n = flags.shape[-1]
+    padded = torch.zeros(flags.shape[:-1] + (w * WORD_BITS,), dtype=torch.int64,
+                         device=flags.device)
+    padded[..., :n] = flags.to(torch.int64)
+    weights = torch.ones(WORD_BITS, dtype=torch.int64, device=flags.device) << torch.arange(
+        WORD_BITS, device=flags.device)
+    words = (padded.reshape(flags.shape[:-1] + (w, WORD_BITS)) * weights).sum(dim=-1)
+    return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)

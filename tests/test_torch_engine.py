@@ -28,11 +28,12 @@ from repro.core import extend as jax_extend  # noqa: E402
 from repro.core.graph import PackedGraph as JaxPacked  # noqa: E402
 from repro.core.plan import build_plan as jax_build_plan  # noqa: E402
 from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex, enumerate_subgraphs  # noqa: E402
+from repro_torch.core import domains as dom  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import extend  # noqa: E402
 from repro_torch.core.frontier import EngineState, init_state  # noqa: E402
 from repro_torch.core.plan import PLAN_ARRAY_FIELDS, VARIANTS, plan_from_numpy  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import _build, ops  # noqa: E402
 from tests.test_backend_conformance import CASES  # noqa: E402
 from tests.test_torch_plan import to_port  # noqa: E402
 
@@ -76,7 +77,8 @@ def test_state_level_conformance(rng, store_used, collect):
                 st = step(st)
             for name, a, b in zip(EngineState._fields, st, want):
                 b = np.asarray(b)
-                a = a.numpy().view(b.dtype) if b.dtype == np.uint32 else a.numpy()
+                a = a[0].numpy()  # the port's state is a pack of one query
+                a = a.view(b.dtype) if b.dtype == np.uint32 else a
                 np.testing.assert_array_equal(
                     a, b, err_msg=f"{name} after {i} steps, {backend} use_pallas={use_pallas}")
 
@@ -164,7 +166,7 @@ def test_cpu_run_launches_no_kernel(rng):
     for backend, use_pallas in PORT_PATHS:
         enumerate_subgraphs(to_port(pat), to_port(tgt), device=CPU, n_workers=2,
                             step_backend=backend, use_pallas=use_pallas)
-    assert ops.launch_counts() == {"extend_step": 0, "candidate_mask": 0}
+    assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -195,11 +197,11 @@ def test_later_session_features_refused(rng):
     with pytest.raises(NotImplementedError, match="item 8"):
         Enumerator(g, device=CPU).prepare(p, seed_edge="auto")
     enum = Enumerator(g, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        enum.prepare_batch([p])
     with pytest.raises(NotImplementedError, match="item 10"):
         enum.run_delta(enum.prepare(p), [], None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        enum.stream([p])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        dom.compute_domains_csr(p, g, 1)
+    with pytest.raises(NotImplementedError, match="item 7"):
+        dom.CsrTargetDomainArrays()
     with pytest.raises(ValueError, match="step_backend"):
         EngineConfig(step_backend="tpu")

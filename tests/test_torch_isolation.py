@@ -15,7 +15,15 @@ import pytest
 torch = pytest.importorskip("torch")  # the port needs PyTorch; CI without it skips
 
 import repro_torch  # noqa: E402
-from repro_torch.core import Enumerator, Graph, enumerate_subgraphs  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    Enumerator,
+    Graph,
+    PackedGraph,
+    compute_domains_batch,
+    compute_domains_device,
+    enumerate_many,
+    enumerate_subgraphs,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -29,7 +37,22 @@ def _modules():
     ]
 
 
+# every module of the port so far; the walk below must find each of them
+PORT_MODULES = {
+    "repro_torch", "repro_torch.core", "repro_torch.core.api", "repro_torch.core.domains",
+    "repro_torch.core.engine", "repro_torch.core.extend", "repro_torch.core.frontier",
+    "repro_torch.core.graph", "repro_torch.core.multi", "repro_torch.core.ordering",
+    "repro_torch.core.plan", "repro_torch.core.ref", "repro_torch.core.scheduler",
+    "repro_torch.core.session", "repro_torch.data", "repro_torch.data.graphgen",
+    "repro_torch.kernels", "repro_torch.kernels._build", "repro_torch.kernels.candidate_mask",
+    "repro_torch.kernels.domain_ac", "repro_torch.kernels.extend_step",
+    "repro_torch.kernels.ops", "repro_torch.kernels.popcount_reduce",
+    "repro_torch.kernels.ref",
+}
+
+
 def test_importing_every_module_loads_neither_jax_nor_repro():
+    assert PORT_MODULES <= set(_modules()), PORT_MODULES - set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_modules()!r}:\n"
@@ -60,6 +83,12 @@ def test_entry_points_default_to_the_card():
         Enumerator(g)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         enumerate_subgraphs(g, g)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_domains_device(g, PackedGraph.from_graph(g))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_domains_batch([g], PackedGraph.from_graph(g))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        enumerate_many([g], g)
     assert enumerate_subgraphs(g, g, device="cpu").matches == 2
 
 

@@ -1,6 +1,7 @@
-"""The port's K1 / K2 plain versions against the JAX package's kernels.
+"""The port's K1–K5 plain versions against the JAX package's kernels.
 
-`repro_torch.kernels.ref.extend_step_ref` / `candidate_mask_ref` (what the
+`repro_torch.kernels.ref.extend_step_ref` / `candidate_mask_ref` /
+`popcount_rows_ref` / `adjacency_any_ref` / `arc_any_sweep_ref` (what the
 port's kernel entry points run on CPU tensors, and what ``chip_smoke.py``
 holds the CUDA kernels against on the card) must equal, bit for bit, both
 ``repro.kernels.ref``'s oracles and the Pallas kernels run in interpret
@@ -16,14 +17,24 @@ import pytest
 torch = pytest.importorskip("torch")  # the port needs PyTorch; CI without it skips
 
 from repro.kernels import candidate_mask as jax_cm  # noqa: E402
+from repro.kernels import domain_ac as jax_ac  # noqa: E402
+from repro.kernels import popcount_reduce as jax_pc  # noqa: E402
 from repro.kernels import extend_step as jax_es  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import candidate_mask as cm_mod  # noqa: E402
+from repro_torch.kernels import domain_ac as ac_mod  # noqa: E402
+from repro_torch.kernels import popcount_reduce as pc_mod  # noqa: E402
 from repro_torch.kernels import extend_step as es_mod  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ref as kref  # noqa: E402
 from tests.test_extend_step import SHAPES_ES  # noqa: E402
 from tests.test_kernels import SHAPES_CM  # noqa: E402
+
+# the sweeps of tests/test_kernels.py::test_adjacency_any_and_popcount and
+# ::test_arc_any_sweep
+SHAPES_ANY = [(1, 1), (5, 1), (300, 10), (1000, 130), (257, 129)]
+SHAPES_SWEEP = [(2, 1, 1, 1), (4, 10, 3, 6), (2, 300, 5, 16), (6, 257, 129, 9)]
 
 
 def _t(a: np.ndarray) -> torch.Tensor:
@@ -81,6 +92,46 @@ def test_candidate_mask_plain_matches_jax(rng, b, w, mp, n_rows, p_pad):
     np.testing.assert_array_equal(got, pallas)
 
 
+@pytest.mark.parametrize("n,w", SHAPES_ANY)
+def test_popcount_and_adjacency_any_plain_match_jax(rng, n, w):
+    rows = rng.integers(0, 2**32, (n, w), dtype=np.uint32)
+    rows[::3] &= rng.integers(0, 2**32, (len(rows[::3]), w), dtype=np.uint32)
+    for mask in (rng.integers(0, 2**32, (w,), dtype=np.uint32),
+                 np.zeros(w, np.uint32), np.eye(1, w, w - 1, dtype=np.uint32)[0]):
+        jr, jm = jnp.asarray(rows), jnp.asarray(mask)
+        got = ops.adjacency_any(_t(rows), _t(mask)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax_ref.adjacency_any_ref(jr, jm)))
+        np.testing.assert_array_equal(got, np.asarray(jax_ac.adjacency_any(jr, jm, interpret=True)))
+    got = ops.popcount_rows(_t(rows)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_ref.popcount_rows_ref(jnp.asarray(rows))))
+    np.testing.assert_array_equal(
+        got, np.asarray(jax_pc.popcount_rows(jnp.asarray(rows), interpret=True)))
+
+
+@pytest.mark.parametrize("n_planes,n_t,w,n_arcs", SHAPES_SWEEP)
+def test_arc_any_sweep_plain_matches_jax(rng, n_planes, n_t, w, n_arcs):
+    adj = rng.integers(0, 2**32, (n_planes, n_t, w), dtype=np.uint32)
+    adj &= rng.integers(0, 2**32, (n_planes, n_t, w), dtype=np.uint32)  # sparser rows
+    arc_row = rng.integers(0, n_planes, n_arcs).astype(np.int32)
+    masks = rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32)
+    masks[0] = 0
+    jargs = [jnp.asarray(x) for x in (adj, arc_row, masks)]
+    got = ops.arc_any_sweep(_t(adj), _t(arc_row), _t(masks)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jax_ref.arc_any_sweep_ref(*jargs)))
+    np.testing.assert_array_equal(got, np.asarray(jax_ac.arc_any_sweep(*jargs, interpret=True)))
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (31, 1), (32, 1), (33, 2), (70, 3), (100, 5)])
+def test_pack_bits_matches_jax(rng, n, w):
+    flags = (rng.random(n) < 0.5).astype(np.int32)
+    want = np.asarray(jax_ref.pack_bits_ref(jnp.asarray(flags), w))
+    np.testing.assert_array_equal(_bits(ops.pack_bits(_t(flags), w)), want)
+    batch = (rng.random((3, n)) < 0.5).astype(np.int32)  # leading axes pack row by row
+    np.testing.assert_array_equal(
+        _bits(ops.pack_bits(_t(batch), w)),
+        np.stack([np.asarray(jax_ref.pack_bits_ref(jnp.asarray(f), w)) for f in batch]))
+
+
 def test_cpu_tensors_take_the_plain_version(rng):
     """On CPU tensors the entry points run the plain versions and launch
     (and count) no kernel; the CUDA wrappers refuse CPU tensors."""
@@ -88,12 +139,22 @@ def test_cpu_tensors_take_the_plain_version(rng):
     ops.reset_launch_counts()
     ops.extend_step(_t(rows), _t(dom), _t(pos), _t(row_idx), _t(depth), n_p, _t(used), _t(cand))
     ops.candidate_mask(_t(rows), _t(dom), _t(pos), _t(row_idx), _t(used))
-    assert ops.launch_counts() == {"extend_step": 0, "candidate_mask": 0}
+    assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
     with pytest.raises(ValueError, match="CUDA"):
         cm_mod.candidate_mask_cuda(_t(rows), _t(dom), _t(pos), _t(row_idx), _t(used))
     with pytest.raises(ValueError, match="CUDA"):
         es_mod.extend_step_cuda(_t(rows), _t(dom), _t(pos), _t(row_idx), _t(depth), n_p,
                                 _t(used), _t(cand))
+    ops.popcount_rows(_t(rows))
+    ops.adjacency_any(_t(rows), _t(used[0]))
+    ops.arc_any_sweep(_t(rows)[None], _t(pos[:2] * 0), _t(used[:2]))
+    assert ops.launch_counts() == dict.fromkeys(_build.KERNELS, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        pc_mod.popcount_rows_cuda(_t(rows))
+    with pytest.raises(ValueError, match="CUDA"):
+        ac_mod.adjacency_any_cuda(_t(rows), _t(used[0]))
+    with pytest.raises(ValueError, match="CUDA"):
+        ac_mod.arc_any_sweep_cuda(_t(rows)[None], _t(pos[:2] * 0), _t(used[:2]))
 
 
 def test_bit_helpers_match_numpy(rng):

@@ -120,3 +120,10 @@ def test_graphgen_matches_repro():
                 assert g.n == w.n
                 for f in ("src", "dst", "labels", "edge_labels"):
                     np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
+        # keeping only the first target keeps its graph and patterns
+        first = graphgen.make_collection(name, n_targets=1, **kw)
+        assert [i.name for i in first] == [i.name for i in want if "/t0/" in i.name]
+        for gi, wi in zip(first, want):
+            for f in ("src", "dst", "labels", "edge_labels"):
+                np.testing.assert_array_equal(getattr(gi.pattern, f), getattr(wi.pattern, f))
+                np.testing.assert_array_equal(getattr(gi.target, f), getattr(wi.target, f))
