@@ -32,7 +32,24 @@ Phases, each printed as one JSON line:
    preparation time (device and numpy), each pack's time, kernel launches
    per fixpoint sweep, and the card's busy share of one profiled pack.
    Then K3, K5 and K4 are checked and timed at full width on the target's
-   own adjacency planes with one 48-arc pattern's real domain masks.
+   own adjacency planes with one 48-arc pattern's real domain masks;
+5. sparse path — target A, PDBSv1 scale (33,067 nodes, 138 labels, w =
+   1,034; six patterns of 5, 9 and 13 nodes), indexed CSR-only
+   (``SubgraphIndex.build(sparse=True)``) under ``ri-ds-si-acfc`` and
+   ``step_backend="auto"``, which must resolve to ``csr``:
+   ``Enumerator.prepare`` runs the CSR domain fixpoint through K8
+   (``csr_arc_sweep``) and K3, and ``run`` goes through K7
+   (``csr_extend_bucketed``), K6 (``csr_extend``, ``csr_walk="flat"``) and
+   the plain path; every counter must agree across the three, with a dense
+   K1 run of the same queries, and with ``ref_enumerate``.  Then
+   ``prepare_batch`` on the sparse index for 8 patterns (device fixpoint
+   through K8, equal to the dense index's numpy preparation) and
+   ``stream`` in packs of 4 through K7, each lane equal to its single run.
+   Target B, hub-heavy (``power_law_graph``: 33,067 nodes, maximum degree
+   16,373), runs one pattern under ``ri`` through K6 and K7, which must
+   agree with each other and ``ref_enumerate``; each one's query time is
+   printed.  K6, K7 and K8 are checked (0 mismatched words) and timed at
+   full width on both targets' CSR arrays, and at ragged edge cases.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -70,6 +87,19 @@ BATCH_VARIANTS = ("ri-ds-si-fc", "ri-ds-si-acfc")
 PACK_SIZE = 4
 MAIN_MP = 8  # DEFAULT_MAX_PARENTS
 MAIN_P_PAD = 32
+# phase 5, the sparse path.  Target A: PDBSv1's largest target (33,067
+# nodes, COLLECTION_NT in src/repro/configs/sge.py) with its CSR variant
+# (CSR_VARIANT there); six patterns, and 8 (of a 9-pattern draw) for the
+# batch half.  Target B: bench_hubheavy's hub-heavy power-law target and
+# pattern (benchmarks/bench_hubheavy.py).
+SPARSE_NT = 33067
+SPARSE_COLLECTION = dict(name="pdbsv1-like", pattern_edges=(8, 16, 24), patterns_per_target=2,
+                         scale=SPARSE_NT / 2400, seed=7, n_targets=1)
+SPARSE_BATCH_COLLECTION = dict(SPARSE_COLLECTION, patterns_per_target=3)
+SPARSE_BATCH = 8
+SPARSE_VARIANT = "ri-ds-si-acfc"
+HUB = dict(n=SPARSE_NT, avg_deg=4.0, alpha=1.5, n_labels=32, seed=7)
+HUB_VARIANT = "ri"
 
 
 def emit(obj) -> None:
@@ -644,6 +674,519 @@ def check_domain_kernels_full(device, fw) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the sparse path (K6, K7, K8)
+# ---------------------------------------------------------------------------
+
+CSR_STEP_KERNELS = ("csr_extend", "csr_extend_bucketed")
+
+
+def csr_step_inputs(rng, up, b, w, mp, p_pad, device, max_real=None):
+    """Inputs of the sparse step on uploaded CSR planes ``up``: each parent
+    slot a real row (plane, node) of the target — in half the lanes the
+    rows of neighbours of one common node, so the segments intersect — a
+    third of the slots unused, every fourth lane without parents
+    (``max_real`` caps the real slots per lane); random dense domains,
+    sparse used-bitmaps, candidates as in :func:`kernel_inputs`."""
+    import numpy as np
+    import torch
+
+    indptr = up.indptr.cpu().numpy()
+    indices = up.indices.cpu().numpy()
+    n_planes, n_t = indptr.shape[0], indptr.shape[1] - 1
+    plane = rng.integers(0, n_planes, (b, mp))
+    node = rng.integers(0, n_t, (b, mp))
+    row0 = np.diff(indptr[0])
+    hubs = np.nonzero(row0 > 0)[0]
+    for lane in range(0, b, 2):  # neighbours of a common node x share x
+        if hubs.size:
+            x = int(rng.choice(hubs))
+            nbrs = indices[indptr[0, x]:indptr[0, x + 1]]
+            node[lane] = rng.choice(nbrs, mp)
+            plane[lane] = rng.integers(0, 2, mp)  # label 0, either direction
+    seg_start = indptr[plane, node].astype(np.int32)
+    seg_len = (indptr[plane, node + 1] - seg_start).astype(np.int32)
+    seg_len[rng.random((b, mp)) < 1 / 3] = -1
+    seg_len[::4] = -1
+    if max_real is not None:
+        seg_len[:, max_real:] = -1
+
+    def u32(*shape):
+        return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
+    cand = u32(b, w)
+    one_word = np.arange(w)[None, :] == rng.integers(0, w, b)[:, None]
+    cand = np.where((rng.random(b) < 0.5)[:, None], np.where(one_word, cand, 0), cand)
+    cand[::4] = 0
+    n_p = p_pad // 2 + 1
+    host = dict(dom_bits=u32(p_pad, w) | u32(p_pad, w), seg_start=seg_start, seg_len=seg_len,
+                child_pos=rng.integers(0, p_pad, b).astype(np.int32),
+                depth=rng.integers(0, n_p - 1, b).astype(np.int32),
+                used=u32(b, w) & u32(b, w) & u32(b, w), cand=cand)
+    x = {k: torch.from_numpy(np.ascontiguousarray(v).view(np.int32)).to(device)
+         for k, v in host.items()}
+    x["indices"] = up.indices
+    return x, n_p
+
+
+CSR_ARGS = ("indices", "dom_bits", "seg_start", "seg_len", "child_pos", "depth")
+
+
+def csr_search_reads(x, want, deg_cap) -> int:
+    """Index reads of the binary searches the step needs for these inputs:
+    for each lead entry of a lane in ``want`` that differs from the entry
+    before it and is set in ``base``, one search per other real parent in
+    slot order, up to the first parent that lacks it; a search counts the
+    reads its loop makes (one per halving, one final compare)."""
+    import torch
+
+    idx = x["indices"].long()
+    n_idx = idx.shape[0]
+    cand, used = x["cand"][want].long(), x["used"][want].long()
+    dom = x["dom_bits"][x["child_pos"][want].long()].long()
+    starts, lens = x["seg_start"][want].long(), x["seg_len"][want].long()
+    nb, w = cand.shape
+    if nb == 0:
+        return 0
+    dev = cand.device
+    ar = torch.arange(nb, device=dev)[:, None]
+    real = lens >= 0
+    lead = real.to(torch.int32).argmax(dim=1)
+    d_start = starts[ar[:, 0], lead]
+    d_len = torch.where(real.any(dim=1), lens[ar[:, 0], lead].clamp(0, deg_cap), 0)
+    first = (cand != 0).to(torch.int32).argmax(dim=1)  # want: cand is not empty
+    word = cand[ar[:, 0], first] & 0xFFFFFFFF
+    v = first.long() * 32 + torch.log2((word & -word).double()).long()
+    k = torch.arange(max(1, int(d_len.max())), device=dev)[None, :]
+    pos = (d_start[:, None] + k).clamp(0, n_idx - 1)
+    u = idx[pos]
+    uc = u.clamp(0, w * 32 - 1)
+    base = dom.gather(1, uc >> 5) & ~used.gather(1, uc >> 5)
+    alive = ((k < d_len[:, None]) & ~((k > 0) & (idx[(pos - 1).clamp_min(0)] == u))
+             & (((base >> (uc & 31)) & 1) != 0) & (uc != v[:, None]))
+    reads = 0
+    for j in range(lens.shape[1]):
+        act = alive & (real[:, j] & (lead != j))[:, None]
+        if not bool(act.any()):
+            continue
+        lo = starts[:, j, None].expand_as(u).clone()
+        end = lo + lens[:, j, None].clamp(0, deg_cap)
+        hi = end.clone()
+        while bool((run := act & (lo < hi)).any()):
+            mid = (lo + hi) >> 1
+            reads += int(run.sum())
+            less = idx[mid.clamp(0, n_idx - 1)] < u
+            lo = torch.where(run & less, mid + 1, lo)
+            hi = torch.where(run & ~less, mid, hi)
+        fin = act & (lo < end)
+        reads += int(fin.sum())
+        alive = alive & (~act | (fin & (idx[lo.clamp(0, n_idx - 1)] == u)))
+    return reads
+
+
+def csr_step_bytes(x, n_p, deg_cap) -> int:
+    """Bytes K6/K7 must move for these inputs: cand, the segment bounds and
+    depth/position of every lane; used and the dom row (each distinct row
+    once) for lanes that want a child; of the lead row the entries the walk
+    needs (its length), and the reads of the searches that
+    :func:`csr_search_reads` counts; cand2, child and meta written once."""
+    import torch
+
+    b, w = x["cand"].shape
+    mp = x["seg_len"].shape[1]
+    want = (x["cand"] != 0).any(dim=1) & (x["depth"] + 1 < n_p)
+    lens = x["seg_len"][want]
+    real = lens >= 0
+    lead = torch.where(real.any(dim=1), lens.clamp(0, deg_cap).gather(
+        1, real.to(torch.int32).argmax(dim=1, keepdim=True))[:, 0], 0)
+    n_want = int(want.sum())
+    dom_rows = torch.unique(x["child_pos"][want]).numel()
+    reads = words_bytes(b * w + b * (2 * mp + 2) + n_want * w + dom_rows * w
+                        + int(lead.sum()) + csr_search_reads(x, want, deg_cap))
+    return reads + words_bytes(2 * b * w + 4 * b)
+
+
+def csr_step_case(x, n_p, deg_cap) -> dict:
+    """K6 and K7 against their plain versions on one set of inputs."""
+    import torch
+
+    from repro_torch.kernels import csr_extend as ce
+    from repro_torch.kernels import ref as kref
+
+    args = [x[k] for k in CSR_ARGS] + [n_p, x["used"], x["cand"]]
+    pairs = {
+        "csr_extend": (ce.csr_extend_cuda(*args, deg_cap=deg_cap),
+                       kref.csr_extend_ref(*args, deg_cap=deg_cap)),
+        "csr_extend_bucketed": (ce.csr_extend_bucketed_cuda(*args, deg_cap=deg_cap),
+                                kref.csr_extend_bucketed_ref(*args, deg_cap=deg_cap)),
+    }
+    torch.cuda.synchronize()
+    b, w = x["cand"].shape
+    case = dict(b=b, w=w, mp=x["seg_len"].shape[1], deg_cap=deg_cap,
+                lanes_with_child=int(pairs["csr_extend"][0][2][:, 3].sum()))
+    for name, (k, p) in pairs.items():
+        case[f"{name}_mismatches"] = sum(int((a != c).sum()) for a, c in zip(k, p))
+        case[f"{name}_err"] = max(max_abs_err(a, c) for a, c in zip(k, p))
+    return case
+
+
+def csr_sweep_case(up, n_t, arc_row, masks) -> dict:
+    """K8 against its plain version on one target's CSR planes."""
+    import torch
+
+    from repro_torch.kernels import domain_ac
+    from repro_torch.kernels import ref as kref
+
+    seg_start = up.indptr[:, :-1].contiguous()
+    seg_len = (up.indptr[:, 1:] - up.indptr[:, :-1]).contiguous()
+    args = (seg_start, seg_len, up.indices, arc_row, masks)
+    k = domain_ac.csr_arc_sweep_cuda(*args, deg_cap=up.deg_cap)
+    p = kref.csr_arc_sweep_ref(*args, deg_cap=up.deg_cap)
+    torch.cuda.synchronize()
+    return dict(n_planes=seg_start.shape[0], n_t=n_t, w=masks.shape[1], n_arcs=masks.shape[0],
+                deg_cap=up.deg_cap, supported=int(k.sum()),
+                csr_arc_sweep_mismatches=int((k != p).sum()), csr_arc_sweep_err=max_abs_err(k, p))
+
+
+def random_csr_upload(rng, n_planes, n_t, deg_cap, device, dup=True):
+    """A random well-formed CSR target (sorted rows, some empty, some at
+    ``deg_cap``, some with an adjacent duplicate entry) as
+    ``extend.upload_csr`` would upload it."""
+    import numpy as np
+
+    from repro_torch.core.extend import upload_csr
+    from repro_torch.core.graph import CsrPlanes
+
+    pool = min(n_t, deg_cap + 4)
+    rows, lens = [], []
+    for i in range(n_planes * n_t):
+        length = 0 if i % 5 == 0 else (deg_cap if i % 7 == 1 else int(rng.integers(0, deg_cap + 1)))
+        r = np.sort(rng.choice(pool, size=min(length, pool), replace=False))
+        if dup and r.size >= 2 and i % 3 == 0:
+            r[1] = r[0]
+        rows.append(r)
+        lens.append(r.size)
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    indptr = np.stack([ptr[p * n_t: p * n_t + n_t + 1] for p in range(n_planes)]).astype(np.int32)
+    planes = CsrPlanes(n_t=n_t, indptr=indptr, indices=np.concatenate(rows).astype(np.int32),
+                       deg_cap=max(lens))
+    return upload_csr(planes, device)
+
+
+def check_sparse_kernels_edges(device) -> list:
+    """K6, K7 and K8 at edge shapes: w ∈ {1, 33, 1,034}, mp = 0, lanes
+    without parents, zero-length rows, rows with duplicate entries, a walk
+    cap below the longest row (K8), 70,000 arcs in one sweep (K8)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13)
+    cases = []
+    for n_planes, n_t, w, deg_cap, b, mp in [(2, 20, 1, 8, 7, 2), (2, 30, 1, 8, 5, 0),
+                                             (4, 200, 33, 16, 33, 3), (2, 1000, 33, 24, 64, 8),
+                                             (2, 1500, 1034, 32, 96, 4), (2, 60, 1034, 8, 4, 0)]:
+        up = random_csr_upload(rng, n_planes, n_t, deg_cap, device)
+        x, n_p = csr_step_inputs(rng, up, b, w, mp, 8, device)
+        cases.append(csr_step_case(x, n_p, up.deg_cap))
+        n_arcs = int(rng.integers(1, 9))
+        arc_row = torch.from_numpy(rng.integers(0, n_planes, n_arcs).astype(np.int32)).to(device)
+        for fill in (None, 0, 0xFFFFFFFF):
+            m = (rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32) if fill is None
+                 else np.full((n_arcs, w), fill, np.uint32))
+            masks = torch.from_numpy(m.view(np.int32)).to(device)
+            cases.append(dict(csr_sweep_case(up, n_t, arc_row, masks),
+                              mask="random" if fill is None else hex(fill)))
+        cut = up._replace(deg_cap=max(1, up.deg_cap // 2))  # rows longer than the walk cap
+        cases.append(dict(csr_sweep_case(cut, n_t, arc_row, masks), mask="cut"))
+    # more arcs than one grid dimension's 65,535 blocks, in one launch
+    up = random_csr_upload(rng, 3, 40, 8, device)
+    n_arcs = 70_000
+    arc_row = torch.from_numpy(rng.integers(0, 3, n_arcs).astype(np.int32)).to(device)
+    m = rng.integers(0, 2**32, (n_arcs, 2), dtype=np.uint32) & rng.integers(
+        0, 2**32, (n_arcs, 2), dtype=np.uint32)
+    cases.append(dict(csr_sweep_case(up, 40, arc_row, torch.from_numpy(m.view(np.int32)).to(
+        device)), mask="many arcs"))
+    return cases
+
+
+def run_sparse_path(device):
+    """Phase 5 on targets A and B; returns the launch counts of the runs
+    that use K6, K7 and K8 and the inputs of their full-width checks."""
+    import numpy as np
+
+    from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
+    from repro_torch.core import domains as dom
+    from repro_torch.core import extend
+    from repro_torch.core.ref import ref_enumerate
+    from repro_torch.data import graphgen
+
+    launches = {"prepare": {}, "run_bucketed": {}, "run_flat": {}, "prepare_batch": {},
+                "stream": {}, "hub_bucketed": {}, "hub_flat": {}}
+
+    # ---- target A: PDBSv1 scale ------------------------------------------
+    t0 = time.perf_counter()
+    insts = graphgen.make_collection(**SPARSE_COLLECTION)
+    target = insts[0].target
+    insts = [i for i in insts if i.target is target]
+    index = SubgraphIndex.build(target, sparse=True)
+    planes = index.csr_planes()
+    deg = np.diff(planes.indptr, axis=1)
+    emit(dict(phase="sparse_setup", target="A", n_t=target.n, arcs=target.m,
+              labels=target.n_node_labels, w=index.w, nnz=planes.nnz,
+              max_degree=int(deg.max()), deg_cap_padded=extend._pad_deg_cap(planes.deg_cap),
+              patterns=[i.pattern.n for i in insts], setup_s=time.perf_counter() - t0))
+
+    def session(idx, variant, **kw):
+        return Enumerator(idx, config=EngineConfig(**ENGINE_KW, **kw), variant=variant,
+                          device=device)
+
+    paths = {
+        "bucketed": session(index, SPARSE_VARIANT, step_backend="auto", use_pallas=True),
+        "flat": session(index, SPARSE_VARIANT, step_backend="auto", use_pallas=True,
+                        csr_walk="flat"),
+        "plain": session(index, SPARSE_VARIANT, step_backend="auto"),
+    }
+    queries, results = {}, {}
+    for label, enum in paths.items():
+        qs, counts = _launched(lambda: [enum.prepare(i.pattern, name=i.name) for i in insts])
+        if label == "bucketed":
+            launches["prepare"] = counts
+            if not (counts["csr_arc_sweep"] and counts["popcount_rows"]):
+                raise AssertionError(f"the sparse prepare launched {counts}")
+        for q in qs:
+            if extend.resolve_step_backend_for_plan(enum.config, q.plan) != "csr":
+                raise AssertionError(f"{q.name}: step_backend='auto' did not resolve to csr")
+            enum.run(q)  # warm-up: first use of each op on the card
+        queries[label] = qs
+        results[label], counts = _launched(lambda: [enum.run(q) for q in qs])
+        if label != "plain":
+            launches[f"run_{label}"] = counts
+        deepest = max(range(len(qs)), key=lambda k: results[label][k].states)
+        emit(dict(phase="sparse_path", target="A", path=label, launches=counts,
+                  profile=profile_query(enum, qs[deepest]),
+                  queries=[dict(name=ms.name, n_p=ms.plan.n_p, matches=ms.matches,
+                                states=ms.states, steps=ms.steps, prepare_s=q.prepare_s,
+                                match_s=ms.match_s, states_per_s=ms.states / ms.match_s)
+                           for q, ms in zip(qs, results[label])]))
+    if not launches["run_bucketed"]["csr_extend_bucketed"]:
+        raise AssertionError("the bucketed run never launched csr_extend_bucketed")
+    if not launches["run_flat"]["csr_extend"]:
+        raise AssertionError("the flat run never launched csr_extend")
+
+    dense_index = SubgraphIndex.build(target)
+    dense = session(dense_index, SPARSE_VARIANT, step_backend="pallas")
+    dqs = [dense.prepare(i.pattern, name=i.name) for i in insts]
+    for q in dqs:
+        dense.run(q)
+    dres, dcounts = _launched(lambda: [dense.run(q) for q in dqs])
+    if not dcounts["extend_step"]:
+        raise AssertionError("the dense run never launched extend_step")
+    emit(dict(phase="sparse_path", target="A", path="dense K1",
+              adjacency_bytes=int(dense_index.packed.adj_bits.nbytes), launches=dcounts,
+              queries=[dict(name=ms.name, matches=ms.matches, states=ms.states,
+                            match_s=ms.match_s, prepare_s=q.prepare_s)
+                       for q, ms in zip(dqs, dres)]))
+    for k, dq in enumerate(dqs):
+        for label in paths:
+            q = queries[label][k]
+            if not np.array_equal(q.plan.dom_bits, dq.plan.dom_bits) \
+                    or q.plan.satisfiable != dq.plan.satisfiable:
+                raise AssertionError(f"{label} {q.name}: CSR domains != numpy")
+    want = [_counters(ms) for ms in dres]
+    for label, res in results.items():
+        if [_counters(ms) for ms in res] != want:
+            raise AssertionError(f"sparse path {label} disagrees with the dense K1 run")
+    oracle = []
+    for inst, ms in zip(insts, results["bucketed"]):
+        ref = ref_enumerate(inst.pattern, target, plan=ms.plan)
+        oracle.append(dict(name=ms.name, matches=ref.matches, states=ref.states))
+        if (ref.matches, ref.states) != (ms.matches, ms.states):
+            raise AssertionError(f"{ms.name}: engine {(ms.matches, ms.states)} != "
+                                 f"ref_enumerate {(ref.matches, ref.states)}")
+    emit(dict(phase="sparse_oracle", target="A", agree=True, queries=oracle))
+
+    # ---- target A: the batch half ----------------------------------------
+    binsts = [i for i in graphgen.make_collection(**SPARSE_BATCH_COLLECTION)
+              if i.target.n == target.n][:SPARSE_BATCH]
+    if any(not np.array_equal(i.target.src, target.src) for i in binsts):
+        raise AssertionError("the batch draw's target differs from target A")
+    pats, names = [i.pattern for i in binsts], [i.name for i in binsts]
+    kern = paths["bucketed"]
+    (bqs, counts) = _launched(lambda: kern.prepare_batch(pats, names=names))
+    launches["prepare_batch"] = counts
+    if not counts["csr_arc_sweep"]:
+        raise AssertionError(f"the sparse prepare_batch launched {counts}")
+    host = dense.prepare_batch(pats, names=names, backend="numpy")
+    for a, h in zip(bqs, host):
+        if not (extend.is_csr_only(a.plan) and a.satisfiable == h.satisfiable
+                and np.array_equal(a.plan.dom_bits, h.plan.dom_bits)
+                and np.array_equal(a.plan.order, h.plan.order)):
+            raise AssertionError(f"{a.name}: the K8 batch fixpoint != numpy")
+    singles = [kern.run(q) for q in bqs]
+    packed, counts = _launched(lambda: list(kern.stream(bqs, pack_size=PACK_SIZE)))
+    launches["stream"] = counts
+    if not counts["csr_extend_bucketed"]:
+        raise AssertionError("the sparse packs never launched csr_extend_bucketed")
+    by_index = {ms.query_index: ms for ms in packed}
+    for i, one in enumerate(singles):
+        if _counters(by_index[i]) != _counters(one):
+            raise AssertionError(f"sparse pack lane {one.name} != its single run")
+    packs = []
+    for ms in packed:
+        if packs and packs[-1]["match_s"] == ms.match_s:
+            packs[-1]["queries"].append(ms.name)
+        else:
+            packs.append(dict(match_s=ms.match_s, queries=[ms.name]))
+    emit(dict(phase="sparse_batch", target="A", patterns=len(pats),
+              prepare_batch_launches=launches["prepare_batch"], stream_launches=counts,
+              prepare_s=[dict(name=q.name, device_s=q.prepare_s, numpy_s=h.prepare_s)
+                         for q, h in zip(bqs, host)],
+              packs=packs,
+              queries=[dict(name=one.name, matches=one.matches, states=one.states,
+                            single_match_s=one.match_s) for one in singles]))
+
+    # the full-width K8 check: the deepest acfc pattern's arcs and domains
+    i = max(range(len(bqs)), key=lambda k: dom.domain_bucket(pats[k])[1])
+    arrs = dom.pattern_domain_arrays(pats[i])
+    n_arcs = int(arrs.arc_valid.sum())
+    sweep = dict(name=names[i], upload=kern._csr_upload(index.fingerprint, index.csr_planes),
+                 n_t=target.n,
+                 arc_row=(np.clip(arrs.arc_lab, 0, index.n_edge_labels - 1) * 2
+                          + arrs.arc_dir)[:n_arcs].astype(np.int32),
+                 masks=np.ascontiguousarray(host[i].plan.domains.bits[arrs.arc_q[:n_arcs]]))
+
+    # ---- target B: hub-heavy ---------------------------------------------
+    t0 = time.perf_counter()
+    hub = graphgen.power_law_graph(HUB["n"], avg_deg=HUB["avg_deg"], alpha=HUB["alpha"],
+                                   n_labels=HUB["n_labels"], seed=HUB["seed"])
+    hdeg = hub.out_degrees() + hub.in_degrees()
+    hpat = graphgen.extract_pattern(hub, 6, seed=HUB["seed"], start=int(np.argsort(hdeg)[-80]))
+    hindex = SubgraphIndex.build(hub, sparse=True)
+    hplanes = hindex.csr_planes()
+    hrow = np.diff(hplanes.indptr, axis=1)
+    emit(dict(phase="sparse_setup", target="B", n_t=hub.n, arcs=hub.m, w=hindex.w,
+              nnz=hplanes.nnz, max_degree=int(hrow.max()), median_degree=float(np.median(hrow)),
+              p99_degree=float(np.percentile(hrow, 99)),
+              deg_cap_padded=extend._pad_deg_cap(hplanes.deg_cap),
+              pattern_nodes=hpat.n, pattern_edges=hpat.m, setup_s=time.perf_counter() - t0))
+    hres = {}
+    for label, walk in (("hub_flat", "flat"), ("hub_bucketed", "bucketed")):
+        enum = session(hindex, HUB_VARIANT, step_backend="csr", use_pallas=True, csr_walk=walk)
+        q = enum.prepare(hpat, name=f"hub/{walk}")
+        enum.run(q)  # warm-up
+        ms, counts = _launched(lambda: enum.run(q))
+        launches[label] = counts
+        hres[label] = ms
+        emit(dict(phase="sparse_path", target="B", path=walk, launches=counts,
+                  matches=ms.matches, states=ms.states, steps=ms.steps, match_s=ms.match_s,
+                  states_per_s=ms.states / ms.match_s, profile=profile_query(enum, q)))
+    if not (launches["hub_flat"]["csr_extend"]
+            and launches["hub_bucketed"]["csr_extend_bucketed"]):
+        raise AssertionError(f"target B launches: {launches['hub_flat']}, "
+                             f"{launches['hub_bucketed']}")
+    if _counters(hres["hub_flat"]) != _counters(hres["hub_bucketed"]):
+        raise AssertionError("target B: the flat and bucketed walks disagree")
+    ref = ref_enumerate(hpat, hub, plan=hres["hub_flat"].plan)
+    if (ref.matches, ref.states) != (hres["hub_flat"].matches, hres["hub_flat"].states):
+        raise AssertionError(f"target B: engine != ref_enumerate {(ref.matches, ref.states)}")
+    emit(dict(phase="sparse_oracle", target="B", agree=True, matches=ref.matches,
+              states=ref.states,
+              flat_over_bucketed=hres["hub_flat"].match_s / hres["hub_bucketed"].match_s))
+    return launches, dict(
+        A=kern._csr_upload(index.fingerprint, index.csr_planes), A_w=index.w,
+        B=extend.upload_csr(hplanes, device), B_w=hindex.w, sweep=sweep)
+
+
+def needed_entries(up, arc_row, masks) -> tuple:
+    """The CSR entries K8 must read for this data, per arc and row up to and
+    including the first entry whose bit is set in the arc's mask, else
+    ``min(len, deg_cap)``: ``(read_once, per_arc)``, where ``read_once``
+    takes, per named plane and row, the most any arc on that plane reads,
+    and ``per_arc`` sums over every arc."""
+    import torch
+
+    indices = up.indices
+    n_idx = indices.shape[0]
+    w = masks.shape[1]
+    ok = (indices >= 0) & (indices < w * 32)
+    u = indices.clamp(0, w * 32 - 1)
+    per_arc, furthest = 0, {}
+    for a in range(masks.shape[0]):
+        r = int(arc_row[a])
+        lo = up.indptr[r, :-1].long()
+        hi = torch.minimum(lo + (up.indptr[r, 1:] - up.indptr[r, :-1]).clamp(
+            max=up.deg_cap).long(), torch.full_like(lo, n_idx))
+        hits = ok & (((masks[a][(u // 32).long()] >> (u % 32)) & 1) != 0)
+        c = torch.zeros(n_idx + 1, dtype=torch.int64, device=indices.device)
+        c[1:] = torch.cumsum(hits, dim=0)
+        first = torch.searchsorted(c, c[lo] + 1)  # c[first] == c[lo] + 1: one past the hit
+        n = torch.where(c[hi] > c[lo], first - lo, hi - lo)
+        per_arc += int(n.sum())
+        furthest[r] = n if r not in furthest else torch.maximum(furthest[r], n)
+    return sum(int(n.sum()) for n in furthest.values()), per_arc
+
+
+def check_sparse_kernels_full(device, fw) -> tuple:
+    """K6 and K7 at b = 4,096, w = 1,034 on target A's and (b = 512, two
+    real parents) target B's CSR planes; K8 on target A's planes with one
+    pattern's real domain masks (from the phase-5 fixpoint).  0 mismatched
+    words required; timed as the other kernels are."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import csr_extend as ce
+    from repro_torch.kernels import domain_ac
+    from repro_torch.kernels import ref as kref
+
+    rng = np.random.default_rng(14)
+    cases, timing = [], {}
+    xa, n_p = csr_step_inputs(rng, fw["A"], 4096, fw["A_w"], MAIN_MP, MAIN_P_PAD, device)
+    cases.append(dict(csr_step_case(xa, n_p, fw["A"].deg_cap), target="A"))
+    xb, n_pb = csr_step_inputs(rng, fw["B"], 512, fw["B_w"], MAIN_MP, MAIN_P_PAD, device,
+                               max_real=2)
+    cases.append(dict(csr_step_case(xb, n_pb, fw["B"].deg_cap), target="B"))
+    args = [xa[k] for k in CSR_ARGS] + [n_p, xa["used"], xa["cand"]]
+    cap = fw["A"].deg_cap
+    step_bytes = csr_step_bytes(xa, n_p, cap)
+    b, w = xa["cand"].shape
+    for name, kern, plain in (
+            ("csr_extend", ce.csr_extend_cuda, kref.csr_extend_ref),
+            ("csr_extend_bucketed", ce.csr_extend_bucketed_cuda, kref.csr_extend_bucketed_ref)):
+        timing[name] = dict(ms=cuda_ms(lambda: kern(*args, deg_cap=cap)),
+                            plain_ms=cuda_ms(lambda: plain(*args, deg_cap=cap), reps=10),
+                            bytes=step_bytes, ops=3 * b * w)
+    bargs = [xb[k] for k in CSR_ARGS] + [n_pb, xb["used"], xb["cand"]]
+    for name, kern in (("csr_extend", ce.csr_extend_cuda),
+                       ("csr_extend_bucketed", ce.csr_extend_bucketed_cuda)):
+        timing[name]["target_b_ms"] = cuda_ms(lambda: kern(*bargs, deg_cap=fw["B"].deg_cap),
+                                              reps=10)
+        timing[name]["target_b_bytes"] = csr_step_bytes(xb, n_pb, fw["B"].deg_cap)
+
+    sw = fw["sweep"]
+    up = sw["upload"]
+    arc_row = torch.from_numpy(sw["arc_row"]).to(device)
+    masks = torch.from_numpy(sw["masks"].view(np.int32)).to(device)
+    cases.append(dict(csr_sweep_case(up, sw["n_t"], arc_row, masks), target="A",
+                      pattern=sw["name"]))
+    n_arcs, mw = masks.shape
+    n_t = sw["n_t"]
+    seg_start = up.indptr[:, :-1].contiguous()
+    seg_len = (up.indptr[:, 1:] - up.indptr[:, :-1]).contiguous()
+    sargs = (seg_start, seg_len, up.indices, arc_row, masks)
+    once, per_arc = needed_entries(up, arc_row, masks)
+    planes = len(set(sw["arc_row"].tolist()))
+    arcs_bytes = words_bytes(n_arcs * (mw + 1) + n_arcs * n_t)  # masks, arc_row, flags
+    timing["csr_arc_sweep"] = dict(
+        ms=cuda_ms(lambda: domain_ac.csr_arc_sweep_cuda(*sargs, deg_cap=up.deg_cap)),
+        plain_ms=cuda_ms(lambda: kref.csr_arc_sweep_ref(*sargs, deg_cap=up.deg_cap), reps=10),
+        bytes=words_bytes(planes * 2 * n_t + once) + arcs_bytes,
+        bytes_plane_per_arc=words_bytes(n_arcs * 2 * n_t + per_arc) + arcs_bytes,
+        ops=2 * per_arc, entries_read_once=once, entries_per_arc=per_arc, planes=planes)
+    timing["csr_arc_sweep"]["bound_plane_per_arc_ms"] = (
+        timing["csr_arc_sweep"]["bytes_plane_per_arc"] / HBM_BYTES_PER_S * 1e3)
+    return cases, timing
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -673,6 +1216,7 @@ def main() -> int:
 
     checks, timing = check_kernels(device)
     checks += check_domain_kernels_edges(device)
+    checks += check_sparse_kernels_edges(device)
     emit(dict(phase="kernels_vs_plain", cases=checks))
     bad = [c for c in checks if any(v for k, v in c.items() if k.endswith("_mismatches"))]
     if bad:
@@ -688,6 +1232,19 @@ def main() -> int:
         raise AssertionError(f"domain kernels disagree at full width: {full_case}")
     checks.append(full_case)
     timing.update(full_timing)
+
+    t0 = time.perf_counter()
+    sparse_launches, sparse_fw = run_sparse_path(device)
+    sparse_cases, sparse_timing = check_sparse_kernels_full(device, sparse_fw)
+    emit(dict(phase="sparse_kernels_full_width", cases=sparse_cases, timing=sparse_timing,
+              sparse_path_s=time.perf_counter() - t0))
+    if any(v for c in sparse_cases for k, v in c.items() if k.endswith("_mismatches")):
+        raise AssertionError(f"sparse kernels disagree at full width: {sparse_cases}")
+    checks += sparse_cases
+    timing.update(sparse_timing)
+    phase5 = {}
+    for counts in sparse_launches.values():
+        _add(phase5, counts)
 
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
@@ -705,6 +1262,15 @@ def main() -> int:
         "arc_any_sweep": dict(source="src/repro_torch/csrc/arc_any_sweep.cu",
                               replaces="src/repro/kernels/domain_ac.py:92",
                               launches=batch_launches["sweep"]["arc_any_sweep"]),
+        "csr_extend": dict(source="src/repro_torch/csrc/csr_extend.cu",
+                           replaces="src/repro/kernels/csr_extend.py:129",
+                           launches=phase5["csr_extend"]),
+        "csr_extend_bucketed": dict(source="src/repro_torch/csrc/csr_extend_bucketed.cu",
+                                    replaces="src/repro/kernels/csr_extend.py:319",
+                                    launches=phase5["csr_extend_bucketed"]),
+        "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
+                              replaces="src/repro/kernels/domain_ac.py:165",
+                              launches=phase5["csr_arc_sweep"]),
     }
     kernels = []
     for name, m in meta.items():
@@ -712,7 +1278,8 @@ def main() -> int:
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = t["ops"] / LANE_OPS_PER_S * 1e3
         cases = [c for c in checks if f"{name}_err" in c]
-        extra = {k: v for k, v in t.items() if k.startswith(("bound_", "bytes_"))}
+        extra = {k: v for k, v in t.items()
+                 if k.startswith(("bound_", "bytes_", "target_b_", "entries_"))}
         kernels.append(dict(
             name=name, route="cuda", source=m["source"], replaces=m["replaces"],
             launches=m["launches"], max_abs_err=max(c[f"{name}_err"] for c in cases),

@@ -1,13 +1,14 @@
 """Core subgraph-enumeration library, in PyTorch (a port of ``repro.core``).
 
 Layers:
-  graph      — host graph + packed-bitmap representations (numpy)
+  graph      — host graph, packed-bitmap and CSR-plane representations (numpy)
   ordering   — RI GreatestConstraintFirst ordering (+ SI tie-break)
   domains    — RI-DS domains: numpy oracle (init, arc consistency, FC)
-               and the device AC ⇄ FC fixpoint
+               and the device AC ⇄ FC fixpoint, over dense planes or CSR
   plan       — SearchPlan: static arrays for the engine
   frontier   — ring-buffer worker stacks: state + pop/push ops
-  extend     — the expansion step (plain PyTorch, or the CUDA kernels)
+  extend     — the expansion step (plain PyTorch, or the CUDA kernels;
+               dense bitmaps or the sparse CSR walk)
   scheduler  — steal-round policy and LPT pack balancing
   engine     — the round loop and steal rounds, over a pack of queries
   ref        — sequential oracle
@@ -21,11 +22,13 @@ from repro_torch.core.api import EnumerationResult, enumerate_subgraphs
 from repro_torch.core.domains import (
     DomainResult,
     compute_domains_batch,
+    compute_domains_csr,
     compute_domains_device,
+    compute_domains_sparse,
 )
 from repro_torch.core.engine import EngineConfig, EngineResult
-from repro_torch.core.graph import Graph, PackedGraph
-from repro_torch.core.plan import SearchPlan, VARIANTS, build_plan
+from repro_torch.core.graph import CsrPlanes, Graph, PackedGraph
+from repro_torch.core.plan import SearchPlan, VARIANTS, build_csr_plan, build_plan
 from repro_torch.core.multi import QueryResult, enumerate_many
 from repro_torch.core.scheduler import balance_assignment, imbalance
 from repro_torch.core.session import (
@@ -42,6 +45,7 @@ from repro_torch.core.session import (
 )
 
 __all__ = [
+    "CsrPlanes",
     "DomainResult",
     "EnumerationResult",
     "enumerate_subgraphs",
@@ -58,9 +62,12 @@ __all__ = [
     "SubgraphIndex",
     "VARIANTS",
     "balance_assignment",
+    "build_csr_plan",
     "build_plan",
     "compute_domains_batch",
+    "compute_domains_csr",
     "compute_domains_device",
+    "compute_domains_sparse",
     "enumerate_many",
     "imbalance",
     "prepare_query",

@@ -23,8 +23,10 @@ edge label the target lacks makes the query unsatisfiable in every variant.
 The device fixpoint (:func:`compute_domains_device`,
 :func:`compute_domains_batch`) runs the same pipeline on the card as Jacobi
 sweeps over padded pattern batches, bit-identical to the oracle when run to
-convergence.  Its CSR twin (``compute_domains_csr``) comes with the sparse
-path, ROADMAP Queue 1 item 7.
+convergence.  Its CSR twin (:func:`compute_domains_csr`, and
+:func:`compute_domains_sparse` for any variant) runs the same sweeps over
+the target's CSR planes (:class:`CsrTargetDomainArrays`, the ``csr_arc_sweep``
+kernel K8), so dense adjacency bitmaps never exist.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import (
+    CsrPlanes,
     Graph,
     PackedGraph,
     WORD_BITS,
@@ -268,6 +271,83 @@ def fixpoint_domains(
         res = nxt
 
 
+def initial_domains_sparse(pattern: Graph, target: Graph, w: int) -> np.ndarray:
+    """:func:`initial_domains` computed from a host :class:`Graph` directly
+    — no :class:`PackedGraph` (hence no dense adjacency bitmaps) is ever
+    materialized.  Bit-identical to the packed form for the same target;
+    the entry point for CSR-only plans."""
+    t_out = target.out_degrees()
+    t_in = target.in_degrees()
+    p_out = pattern.out_degrees()
+    p_in = pattern.in_degrees()
+    bits = np.zeros((pattern.n, w), dtype=np.uint32)
+    for p in range(pattern.n):
+        ok = (
+            (target.labels == pattern.labels[p])
+            & (t_out >= p_out[p])
+            & (t_in >= p_in[p])
+        )
+        idx = np.nonzero(ok)[0]
+        if idx.size:
+            bits[p] = bitmap_from_indices(idx, target.n, w)
+    loops = _self_loops(pattern)
+    if loops:
+        loop_bits = _graph_loop_bits(target, w, target.n_edge_labels)
+        for p, l in loops:
+            if l >= target.n_edge_labels:
+                bits[p] = 0  # label overflow: no target loop can match
+            else:
+                bits[p] &= loop_bits[l]
+    return bits
+
+
+def _graph_loop_bits(target: Graph, w: int, n_elab: int) -> np.ndarray:
+    """``[n_elab, w]``: bit ``t`` set iff the target has a self-loop
+    ``(t, t)`` with edge label ``l`` (from the edge list)."""
+    loop_mask = target.src == target.dst
+    loop_bits = np.zeros((n_elab, w), dtype=np.uint32)
+    for l in range(n_elab):
+        idx = target.src[loop_mask & (target.edge_labels == l)]
+        if idx.size:
+            loop_bits[l] = bitmap_from_indices(idx, target.n, w)
+    return loop_bits
+
+
+def compute_domains_sparse(
+    pattern: Graph,
+    target: Graph,
+    w: int,
+    use_ac: bool = False,
+    use_fc: bool = False,
+    interleave: bool = False,
+    use_pallas: bool = False,
+    ac_iters: Optional[int] = None,
+    tgt_arrays: Optional["CsrTargetDomainArrays"] = None,
+    device=None,
+) -> DomainResult:
+    """Domain pipeline over a host :class:`Graph` — dense adjacency bitmaps
+    are never materialized, for any variant.
+
+    With the default flags (variant ``ri``) this is
+    :func:`initial_domains_sparse` plus the label-overflow / empty-domain
+    unsat rules of :func:`compute_domains`, on the host.  Any of ``use_ac``
+    / ``use_fc`` runs the CSR-native device fixpoint
+    (:func:`compute_domains_csr`) on ``device`` instead.  Bit-identical to
+    :func:`compute_domains` on the packed form of the same target."""
+    if use_ac or use_fc:
+        return compute_domains_csr(
+            pattern, target, w, use_ac=use_ac, use_fc=use_fc,
+            interleave=interleave, use_pallas=use_pallas, ac_iters=ac_iters,
+            tgt_arrays=tgt_arrays, device=device,
+        )
+    bits = initial_domains_sparse(pattern, target, w)
+    if pattern.m and int(pattern.edge_labels.max()) >= target.n_edge_labels:
+        return _unsat(bits)
+    if not np.all(popcount(bits) > 0):
+        return _unsat(bits)
+    return DomainResult(bits, True)
+
+
 def compute_domains(
     pattern: Graph,
     target: PackedGraph,
@@ -323,13 +403,25 @@ class TargetDomainArrays(NamedTuple):
     loop_bits: torch.Tensor  # [n_elab, w] int32 self-loop diagonals
 
 
-class CsrTargetDomainArrays:
-    """The CSR-layout target arrays of ``repro``'s sparse fixpoint: not
-    ported yet."""
+class CsrTargetDomainArrays(NamedTuple):
+    """CSR-layout target inputs to the **same** fixpoint engine — the
+    sparse twin of :class:`TargetDomainArrays`.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "CsrTargetDomainArrays is not ported yet: ROADMAP Queue 1 item 7 (sparse path)")
+    ``seg_start[p, t] / seg_len[p, t]`` bound target node ``t``'s neighbor
+    segment of plane ``p = elab * 2 + dir`` inside the flat ``indices``
+    array (`repro_torch.core.graph.CsrPlanes`, global offsets); ``indices``
+    is sentinel-tailed and over-padded by ``deg_cap``.  ``deg_cap`` (the
+    padded row cap, ``repro``'s ``seg_iota`` length) caps each row's walk.
+    The footprint is ``O(nnz + n_planes · n_t)`` words."""
+
+    seg_start: torch.Tensor  # [n_planes, n_t] int32 global segment offsets
+    seg_len: torch.Tensor  # [n_planes, n_t] int32 row lengths
+    indices: torch.Tensor  # [n_idx] int32 flat CSR columns (sentinel tail)
+    deg_cap: int  # padded max row length
+    labels: torch.Tensor  # [n_t] int32
+    deg_out: torch.Tensor  # [n_t] int32
+    deg_in: torch.Tensor  # [n_t] int32
+    loop_bits: torch.Tensor  # [n_elab, w] int32 self-loop diagonals
 
 
 class PatternDomainArrays(NamedTuple):
@@ -377,6 +469,46 @@ def target_domain_arrays(target: PackedGraph, device=None,
         deg_out=i32(target.deg_out),
         deg_in=i32(target.deg_in),
         loop_bits=bits(target_self_loop_bits(target)),
+    )
+
+
+def csr_target_domain_arrays(
+    target: Graph,
+    w: int,
+    planes: Optional[CsrPlanes] = None,
+    device=None,
+    upload=None,
+) -> CsrTargetDomainArrays:
+    """Ship a host :class:`Graph`'s CSR planes to ``device`` (default: the
+    CUDA card) for sparse domain preprocessing — never materializing dense
+    adjacency bitmaps.  The padding (``deg_cap`` to a multiple of 8,
+    ``nnz`` to 1024-multiples, plus a ``deg_cap`` sentinel tail) is that of
+    `repro_torch.core.extend.upload_csr`, whose result ``upload`` may pass
+    the planes already on the device (its ``indices`` are shared, not
+    copied)."""
+    from repro_torch.core.engine import resolve_device  # engine imports this module
+    from repro_torch.core.extend import upload_csr
+
+    if planes is None:
+        planes = target.csr_planes(target.n_edge_labels)
+    if upload is None:
+        upload = upload_csr(planes, resolve_device(device))
+    dev = upload.indices.device
+    ptr = upload.indptr
+
+    def i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+
+    loop_bits = _graph_loop_bits(target, w, planes.n_edge_labels)
+    return CsrTargetDomainArrays(
+        seg_start=ptr[:, :-1].contiguous(),
+        seg_len=(ptr[:, 1:] - ptr[:, :-1]).contiguous(),
+        indices=upload.indices,
+        deg_cap=upload.deg_cap,
+        labels=i32(target.labels),
+        deg_out=i32(target.out_degrees()),
+        deg_in=i32(target.in_degrees()),
+        loop_bits=torch.from_numpy(loop_bits.view(np.int32)).to(dev),
     )
 
 
@@ -503,11 +635,17 @@ def _device_fixpoint(
     and only the lanes still running are swept.  ``live`` (``[L]`` bool)
     marks pad lanes, which are frozen from the start.  One host
     synchronisation per iteration reads every lane's flags.
+
+    ``tgt`` selects the layout: :class:`TargetDomainArrays` tests arc
+    support on dense adjacency planes (K4 per sweep or K5 per arc), a
+    :class:`CsrTargetDomainArrays` on CSR segments (K8, one launch per
+    sweep over the arcs of every live lane, in both kernel modes); the
+    rest is the same code.
     """
     use_kernels = pallas_mode != "off"
-    n_planes, n_t, w = tgt.adj_flat.shape
-    n_elab = n_planes // 2
-    dev = tgt.adj_flat.device
+    is_csr = isinstance(tgt, CsrTargetDomainArrays)
+    n_elab, w = tgt.loop_bits.shape
+    dev = tgt.labels.device
     n_lanes, p_pad = pat.labels.shape
     live = np.ones(n_lanes, dtype=bool) if live is None else np.asarray(live, dtype=bool)
 
@@ -557,7 +695,11 @@ def _device_fixpoint(
         if lanes.size:
             src = bits[on_dev(lanes, torch.long), on_dev(pat.arc_q[lanes, slots], torch.long)]
             rows = arc_row[lanes, slots]
-            if pallas_mode == "sweep":
+            if is_csr:
+                sweep = kops.csr_arc_sweep if use_kernels else kref.csr_arc_sweep_ref
+                ok = sweep(tgt.seg_start, tgt.seg_len, tgt.indices, on_dev(rows), src,
+                           deg_cap=tgt.deg_cap)
+            elif pallas_mode == "sweep":
                 ok = kops.arc_any_sweep(tgt.adj_flat, on_dev(rows), src)
             else:
                 any_fn = kops.adjacency_any if pallas_mode == "per-arc" else kref.adjacency_any_ref
@@ -680,11 +822,33 @@ def compute_domains_device(
     return DomainResult(_host_bits(bits)[: pattern.n].copy(), sat)
 
 
-def compute_domains_csr(pattern, target, w, use_ac=True, use_fc=False, interleave=False,
-                        use_pallas=False, ac_iters=None, tgt_arrays=None):
-    """The CSR-native device fixpoint of ``repro``: not ported yet."""
-    raise NotImplementedError(
-        "compute_domains_csr is not ported yet: ROADMAP Queue 1 item 7 (sparse path)")
+def compute_domains_csr(
+    pattern: Graph,
+    target: Graph,
+    w: int,
+    use_ac: bool = True,
+    use_fc: bool = False,
+    interleave: bool = False,
+    use_pallas: bool = False,
+    ac_iters: Optional[int] = None,
+    tgt_arrays: Optional[CsrTargetDomainArrays] = None,
+    device=None,
+) -> DomainResult:
+    """Single-query CSR-native device preprocessing on ``device`` (default:
+    the CUDA card, or ``tgt_arrays``' device): :func:`compute_domains_device`
+    without a :class:`PackedGraph` — the AC sweeps walk the target's CSR
+    segments, so dense adjacency bitmaps never exist.  Bit-identical to
+    :func:`compute_domains` on the packed form of the same target when run
+    to convergence.  ``use_pallas`` sweeps with K8 and counts with K3."""
+    tgt = (tgt_arrays if tgt_arrays is not None
+           else csr_target_domain_arrays(target, w, device=device))
+    fn = device_fixpoint(
+        use_ac=use_ac, use_fc=use_fc, interleave=interleave,
+        pallas_mode="sweep" if use_pallas else "off",
+        max_iters=ac_iters, batched=False,
+    )
+    bits, sat = fn(tgt, pattern_domain_arrays(pattern))
+    return DomainResult(_host_bits(bits)[: pattern.n].copy(), sat)
 
 
 def compute_domains_batch(
@@ -708,7 +872,8 @@ def compute_domains_batch(
     unspecified pads snap to the batch maxima.  ``batch_pad`` lanes beyond
     ``len(patterns)`` replicate lane 0, are frozen from the start (they
     cost no sweep) and are discarded.  ``use_pallas`` tests each (pattern,
-    arc) slot with K5 and counts with K3.
+    arc) slot with K5 (with :class:`CsrTargetDomainArrays` ``tgt_arrays``,
+    each sweep with one K8 launch) and counts with K3.
     """
     patterns = list(patterns)
     if not patterns:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import extend, frontier, scheduler
-from repro_torch.core.extend import PlanArrays, make_plan_arrays
+from repro_torch.core.extend import AnyPlanArrays, plan_arrays_for
 from repro_torch.core.frontier import EngineState, init_state
 from repro_torch.core.plan import SearchPlan
 
@@ -65,18 +65,23 @@ class EngineConfig:
       max_steps: safety bound on outer loop iterations (0 = 2**30).
       collect_matches: if > 0, materialize up to this many mappings per
         worker into a ring buffer.
-      step_backend: ``"jnp"`` (plain PyTorch step) or ``"pallas"`` (the
-        fused ``extend_step`` kernel).  ``repro``'s ``"csr"``, ``"auto"``
-        and ``"partitioned"`` are refused until their slice is ported.
+      step_backend: ``"jnp"`` (plain PyTorch step), ``"pallas"`` (the
+        fused ``extend_step`` kernel), ``"csr"`` (the sparse CSR step) or
+        ``"auto"`` (``"csr"`` past ``extend.CSR_AUTO_NT`` target nodes and
+        for CSR-only plans, else ``"jnp"``).  ``repro``'s
+        ``"partitioned"`` is refused until its slice is ported.
       use_pallas: with ``step_backend="jnp"``, route the candidate AND
-        through the ``candidate_mask`` kernel.
+        through the ``candidate_mask`` kernel; with ``"csr"``, run the step
+        as the ``csr_extend_bucketed`` / ``csr_extend`` kernel.
       store_used: keep per-entry used-bitmaps on the stack (True) or
         recompute them from the mapping at expansion time (False).
       n_partitions, spill_cap: settings of the out-of-core backend
         (not ported yet; kept so configurations carry over).
       root_seeding: ``"vertex"``, the paper's depth-0 root split; edge
         seeding is refused until its slice is ported.
-      csr_walk: setting of the CSR backend (not ported yet).
+      csr_walk: the CSR lead-segment schedule: ``"bucketed"`` (default)
+        caps each lane's walk at its row's pow2 degree bucket, ``"flat"``
+        walks the global ``deg_cap``.  Ignored by the dense backends.
     """
 
     n_workers: int = 1
@@ -103,11 +108,9 @@ class EngineConfig:
                 f"step_backend={self.step_backend!r} is not ported yet: "
                 + extend.LATER_STEP_BACKENDS[self.step_backend]
             )
-        if self.step_backend not in extend.STEP_BACKENDS:
-            raise ValueError(
-                f"step_backend={self.step_backend!r}; expected one of "
-                f"{extend.STEP_BACKENDS}"
-            )
+        valid = extend.STEP_BACKENDS + ("auto",)
+        if self.step_backend not in valid:
+            raise ValueError(f"step_backend={self.step_backend!r}; expected one of {valid}")
         if self.root_seeding in ("edge", "auto"):
             raise NotImplementedError(
                 f"root_seeding={self.root_seeding!r} is not ported yet: "
@@ -210,8 +213,13 @@ def _steal_round(cfg: EngineConfig, state: EngineState,
 # round loop
 # ---------------------------------------------------------------------------
 
-def make_expand_fn(cfg: EngineConfig, plan: PlanArrays):
-    """The worker-local part of one round: ``rebalance_interval`` steps."""
+def make_expand_fn(cfg: EngineConfig, plan: AnyPlanArrays):
+    """The worker-local part of one round: ``rebalance_interval`` steps.
+
+    ``repro`` ends a CSR round with a ring compaction (base → 0), a layout
+    hook for its segment gathers.  The port addresses every ring modulo its
+    base, so it leaves the rings where they are: its state equals
+    ``repro``'s up to that rotation, with the same results."""
     step = extend.make_step_fn(cfg, plan)
 
     def expand(state: EngineState, active: Optional[torch.Tensor] = None) -> EngineState:
@@ -222,7 +230,7 @@ def make_expand_fn(cfg: EngineConfig, plan: PlanArrays):
     return expand
 
 
-def make_round_fn(cfg: EngineConfig, plan: PlanArrays):
+def make_round_fn(cfg: EngineConfig, plan: AnyPlanArrays):
     """One round: ``rebalance_interval`` expansion steps, then one steal
     round, on the pack lanes where ``active`` (``[L]`` bool, None for all)
     holds.  Enqueues device work only; nothing here waits for the device."""
@@ -239,7 +247,7 @@ def make_round_fn(cfg: EngineConfig, plan: PlanArrays):
     return body
 
 
-def _engine_loop(cfg: EngineConfig, plan: PlanArrays, state: EngineState) -> EngineState:
+def _engine_loop(cfg: EngineConfig, plan: AnyPlanArrays, state: EngineState) -> EngineState:
     """Run rounds until every pack lane has drained its stacks, reached
     ``max_steps``, or overflowed (a full ring freezes its worker, so an
     overflowed run can never drain; the session retries it with a doubled
@@ -257,14 +265,16 @@ def _engine_loop(cfg: EngineConfig, plan: PlanArrays, state: EngineState) -> Eng
 
 def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineResult:
     """Enumerate all isomorphic subgraphs described by ``plan`` on
-    ``device`` (default: the CUDA card; raises without one).  ``mesh=``
-    (worker stacks sharded over several cards) is not ported yet."""
+    ``device`` (default: the CUDA card; raises without one).  The plan
+    arrays follow the resolved step backend (dense bitmaps, or CSR planes
+    for ``"csr"`` / large-``n_t`` ``"auto"``).  ``mesh=`` (worker stacks
+    sharded over several cards) is not ported yet."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: ROADMAP Queue 1 item 11 (multi-device)"
         )
     device = resolve_device(device)
-    arrays = make_plan_arrays(plan, device)
+    arrays = plan_arrays_for(cfg, [plan], device)
     final = _engine_loop(cfg, arrays, init_state(plan, cfg, device))
     return result_from_state(final, cfg)
 

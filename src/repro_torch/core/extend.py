@@ -6,51 +6,78 @@ candidate bit ``v``, extend the mapping, build the child's candidate
 bitmap ``dom[pos+1] ∧ ¬used' ∧ ⋀ adj_rows(mapped parents)`` (the paper's
 check-consistency-before-spawning rule, §3.1), and flag matches at full
 depth.  The step flattens all ``V·expand_width`` lanes into one batch, so a
-kernel sees one launch of ``V·expand_width`` blocks.  A port of the dense
-half of ``repro.core.extend``; the backend names are ``repro``'s:
+kernel sees one launch of ``V·expand_width`` blocks.  A port of
+``repro.core.extend`` (all but the out-of-core partitioned backend); the
+backend names are ``repro``'s:
 
 * ``"jnp"`` — :class:`JnpStepBackend`, plain PyTorch ops; with
   ``EngineConfig.use_pallas`` the candidate AND goes through the
   ``candidate_mask`` kernel (K2).
 * ``"pallas"`` — :class:`PallasStepBackend`, the fused ``extend_step``
   kernel (K1): extraction, the AND-tree and match flagging in one launch.
+* ``"csr"`` — :class:`CsrStepBackend`, the sparse layout
+  (:class:`CsrPlanArrays`): instead of ANDing dense ``[n_t, w]`` adjacency
+  rows, the first mapped parent's CSR segment proposes candidates and a
+  binary search in every other parent's sorted segment keeps them.  With
+  ``use_pallas`` the whole step is the ``csr_extend_bucketed`` kernel (K7,
+  ``csr_walk="bucketed"``) or ``csr_extend`` (K6, ``csr_walk="flat"``).
+* ``"auto"`` — resolves per plan: ``"csr"`` past :data:`CSR_AUTO_NT`
+  target nodes (and always for a CSR-only plan), else ``"jnp"``.
 
-Both are bit-identical on every :class:`StepLanes` field the engine
+All are bit-identical on every :class:`StepLanes` field the engine
 consumes.  On CPU tensors the kernels run their plain versions.
 
 A step covers a whole **pack** of queries that share one target
 (`repro_torch.core.frontier`): their plan arrays are stacked along the
-position axis (:func:`make_pack_arrays`), each lane's child position is
-offset by its query's ``lane · p_pad``, and so one kernel launch per step
-serves every lane of the pack.  A single query is the pack of one.
+position axis (:func:`make_pack_arrays`, :func:`make_csr_pack_arrays`),
+each lane's child position is offset by its query's ``lane · p_pad``, and
+so one kernel launch per step serves every lane of the pack.  A single
+query is the pack of one.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Protocol, Sequence, Tuple, TYPE_CHECKING
+from typing import NamedTuple, Optional, Protocol, Sequence, Tuple, TYPE_CHECKING, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import frontier
 from repro_torch.core.frontier import EngineState
-from repro_torch.core.graph import WORD_BITS
+from repro_torch.core.graph import WORD_BITS, CsrPlanes, csr_planes_from_bitmaps, deg_bucket_caps
 from repro_torch.core.plan import SearchPlan
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ref import lowest_bit
 
 if TYPE_CHECKING:  # engine imports extend
     from repro_torch.core.engine import EngineConfig
 
-STEP_BACKENDS = ("jnp", "pallas")
+STEP_BACKENDS = ("jnp", "pallas", "csr")
 
 # step backends of ``repro`` that a later slice of the port brings, with the
 # ROADMAP item that does
 LATER_STEP_BACKENDS = {
-    "csr": "ROADMAP Queue 1 item 7 (sparse path)",
-    "auto": "ROADMAP Queue 1 item 7 (sparse path)",
     "partitioned": "ROADMAP Queue 1 item 9 (out-of-core)",
 }
+
+# "auto" resolution threshold: beyond this many target nodes the dense
+# [n_elab, 2, n_t, w] bitmaps cost O(n_t²/32) words (PDBSv1's 33,067
+# nodes: ~273 MB) and the sparse layout takes over.
+CSR_AUTO_NT = 32768
+
+# int32 sentinel for padded CSR segment slots: larger than any node id, so
+# sentinel-masked segments stay sorted for the binary search.
+CSR_SENTINEL = np.int32(2**31 - 1)
+
+
+def resolve_step_backend(cfg: "EngineConfig", n_t: int) -> str:
+    """Resolve ``cfg.step_backend`` for a plan with ``n_t`` target nodes:
+    ``"auto"`` picks ``"csr"`` past :data:`CSR_AUTO_NT` (an explicit backend
+    always wins)."""
+    if cfg.step_backend != "auto":
+        return cfg.step_backend
+    return "csr" if n_t > CSR_AUTO_NT else "jnp"
 
 
 class PlanArrays(NamedTuple):
@@ -90,6 +117,31 @@ def make_plan_arrays(plan: SearchPlan, device, rows: Optional[torch.Tensor] = No
     return make_pack_arrays([plan], device, rows=rows)
 
 
+def _stack_plans(plans: Sequence[SearchPlan], device) -> dict:
+    """The per-query plan arrays of a pack, stacked along the position axis
+    (the fields :class:`PlanArrays` and :class:`CsrPlanArrays` share)."""
+    first = plans[0]
+    for p in plans[1:]:
+        if p.parent_pos.shape != first.parent_pos.shape or p.dom_bits.shape != first.dom_bits.shape:
+            raise ValueError("a pack's plans must share p_pad, max_parents and w")
+
+    def cat_i32(name):
+        a = np.concatenate([np.asarray(getattr(p, name), dtype=np.int32) for p in plans])
+        return torch.from_numpy(a).to(device)
+
+    n_p = [p.n_p for p in plans]
+    return dict(
+        order_valid=torch.from_numpy(np.concatenate([p.order >= 0 for p in plans])).to(device),
+        parent_pos=cat_i32("parent_pos"),
+        parent_dir=cat_i32("parent_dir"),
+        parent_elab=cat_i32("parent_elab"),
+        dom_bits=bits_to_tensor(np.concatenate([p.dom_bits for p in plans]), device),
+        n_p=torch.tensor(n_p, dtype=torch.int32, device=device),
+        p_pad=first.p_pad,
+        n_p_max=max(n_p),
+    )
+
+
 def make_pack_arrays(plans: Sequence[SearchPlan], device,
                      rows: Optional[torch.Tensor] = None) -> PlanArrays:
     """Upload the plans of one pack, stacked along the position axis.
@@ -100,30 +152,169 @@ def make_pack_arrays(plans: Sequence[SearchPlan], device,
     the dominant transfer, so every plan of one target shares it."""
     first = plans[0]
     for p in plans[1:]:
-        if p.parent_pos.shape != first.parent_pos.shape or p.dom_bits.shape != first.dom_bits.shape:
-            raise ValueError("a pack's plans must share p_pad, max_parents and w")
         if p.adj_bits is not first.adj_bits and not np.array_equal(p.adj_bits, first.adj_bits):
             raise ValueError("a pack's plans must share one target adjacency")
+    stacked = _stack_plans(plans, device)
     if rows is None:
         rows = upload_rows(first.adj_bits, device)
+    return PlanArrays(adj_bits=rows[:-1].view(first.adj_bits.shape), rows=rows, **stacked)
 
-    def cat_i32(name):
-        a = np.concatenate([np.asarray(getattr(p, name), dtype=np.int32) for p in plans])
-        return torch.from_numpy(a).to(device)
 
-    n_p = [p.n_p for p in plans]
-    return PlanArrays(
-        order_valid=torch.from_numpy(np.concatenate([p.order >= 0 for p in plans])).to(device),
-        parent_pos=cat_i32("parent_pos"),
-        parent_dir=cat_i32("parent_dir"),
-        parent_elab=cat_i32("parent_elab"),
-        dom_bits=bits_to_tensor(np.concatenate([p.dom_bits for p in plans]), device),
-        adj_bits=rows[:-1].view(first.adj_bits.shape),
-        rows=rows,
-        n_p=torch.tensor(n_p, dtype=torch.int32, device=device),
-        p_pad=first.p_pad,
-        n_p_max=max(n_p),
+# ---------------------------------------------------------------------------
+# CSR plan arrays (the sparse twin of PlanArrays)
+# ---------------------------------------------------------------------------
+
+class CsrUpload(NamedTuple):
+    """A target's CSR planes on the device, as the sparse step reads them:
+    ``indptr`` ``[n_planes, n_t + 1]`` (global offsets) and ``indices``
+    ``[nnz_pad + deg_cap]``, over-padded with :data:`CSR_SENTINEL` so a
+    ``deg_cap``-wide window from any row start stays inside it."""
+
+    indptr: torch.Tensor  # [n_planes, n_t + 1] int32
+    indices: torch.Tensor  # [nnz_pad + deg_cap] int32
+    deg_cap: int  # padded max row length
+
+
+class CsrPlanArrays(NamedTuple):
+    """Device-resident plan arrays of a pack of ``L`` queries in CSR
+    adjacency layout: :class:`PlanArrays` with the dense ``adj_bits`` /
+    ``rows`` replaced by the target's CSR planes (one copy for the pack).
+    ``deg_cap`` is ``repro``'s ``seg_iota`` length."""
+
+    order_valid: torch.Tensor  # [L * p_pad] bool
+    parent_pos: torch.Tensor  # [L * p_pad, mp] int32
+    parent_dir: torch.Tensor  # [L * p_pad, mp] int32
+    parent_elab: torch.Tensor  # [L * p_pad, mp] int32
+    dom_bits: torch.Tensor  # [L * p_pad, w] int32
+    indptr: torch.Tensor  # [n_planes, n_t + 1] int32, global offsets
+    indices: torch.Tensor  # [nnz_pad + deg_cap] int32, sentinel-padded tail
+    deg_cap: int  # padded max row length
+    n_p: torch.Tensor  # [L] int32 actual pattern size per query
+    p_pad: int
+    n_p_max: int
+
+
+AnyPlanArrays = Union[PlanArrays, CsrPlanArrays]
+
+
+def _pad_deg_cap(deg_cap: int) -> int:
+    """Segment-walk width: max row degree snapped up to a multiple of 8
+    (min 8), as ``repro`` pads it."""
+    return max(8, ((deg_cap + 7) // 8) * 8)
+
+
+def _pad_nnz(nnz: int) -> int:
+    """nnz shape bucket (multiples of 1024), as ``repro`` pads it."""
+    return max(1024, ((nnz + 1023) // 1024) * 1024)
+
+
+def plan_csr(plan: SearchPlan) -> CsrPlanes:
+    """The plan's CSR planes, resolved once and cached on the plan:
+    ``plan.csr`` (CSR-only plans) wins, then ``plan.csr_factory`` (plans
+    built by a session share their index's planes), then a conversion of
+    the dense bitmaps."""
+    cp = plan.csr
+    if cp is None:
+        if plan.csr_factory is not None:
+            cp = plan.csr_factory()
+        else:
+            cp = csr_planes_from_bitmaps(np.asarray(plan.adj_bits))
+        plan.csr = cp  # cache: the conversion is O(n_t · w) host work
+    return cp
+
+
+def upload_csr(planes: CsrPlanes, device) -> CsrUpload:
+    """``planes`` padded as ``repro``'s ``make_csr_plan_arrays`` pads them,
+    on ``device``."""
+    deg_cap = _pad_deg_cap(planes.deg_cap)
+    indices = np.full(_pad_nnz(planes.nnz) + deg_cap, CSR_SENTINEL, dtype=np.int32)
+    indices[: planes.nnz] = planes.indices
+    return CsrUpload(
+        indptr=torch.from_numpy(np.ascontiguousarray(planes.indptr, dtype=np.int32)).to(device),
+        indices=torch.from_numpy(indices).to(device),
+        deg_cap=deg_cap,
     )
+
+
+def make_csr_plan_arrays(plan: SearchPlan, device,
+                         csr: Optional[CsrUpload] = None) -> CsrPlanArrays:
+    """Upload ``plan`` in CSR layout as a pack of one (see
+    :func:`make_csr_pack_arrays`)."""
+    return make_csr_pack_arrays([plan], device, csr=csr)
+
+
+def make_csr_pack_arrays(plans: Sequence[SearchPlan], device,
+                         csr: Optional[CsrUpload] = None) -> CsrPlanArrays:
+    """Upload the plans of one pack in CSR layout, stacked along the
+    position axis.  The plans must share their padding and their target
+    (checked on the planes unless ``csr``, the target's planes already
+    uploaded by :func:`upload_csr`, is given).  CSR-only plans use their
+    planes directly; dense-built plans derive them (:func:`plan_csr`),
+    bit for bit the same adjacency relation."""
+    stacked = _stack_plans(plans, device)
+    if csr is None:
+        cp = plan_csr(plans[0])
+        for p in plans[1:]:
+            other = plan_csr(p)
+            if other is not cp and not (np.array_equal(other.indptr, cp.indptr)
+                                        and np.array_equal(other.indices, cp.indices)):
+                raise ValueError("a pack's plans must share one target adjacency")
+        csr = upload_csr(cp, device)
+    return CsrPlanArrays(indptr=csr.indptr, indices=csr.indices, deg_cap=csr.deg_cap,
+                         **stacked)
+
+
+def is_csr_only(plan: SearchPlan) -> bool:
+    """True for plans built by ``build_csr_plan``: the dense adjacency was
+    never materialized, so only the csr layout can run them."""
+    return plan.csr is not None and plan.adj_bits.shape[2] == 0
+
+
+def resolve_step_backend_for_plan(cfg: "EngineConfig", plan: SearchPlan) -> str:
+    """:func:`resolve_step_backend` with the plan in hand: a CSR-only plan
+    has no dense layout, so ``"auto"`` always resolves to ``"csr"`` for it."""
+    if is_csr_only(plan) and cfg.step_backend == "auto":
+        return "csr"
+    return resolve_step_backend(cfg, plan.n_t)
+
+
+def validate_backend_for_plan(cfg: "EngineConfig", plan: SearchPlan) -> None:
+    """Fail fast when an explicitly dense step backend is asked to run a
+    CSR-only plan (the session calls this at prepare and run entry)."""
+    if cfg.step_backend in ("jnp", "pallas") and is_csr_only(plan):
+        raise ValueError(
+            f"step_backend={cfg.step_backend!r} is a dense backend, but the "
+            "plan is CSR-only (layout: csr — built by build_csr_plan, so "
+            "dense adj_bits were never materialized); valid backends for "
+            "this plan are 'csr' or 'auto' ('partitioned' once ROADMAP "
+            "Queue 1 item 9 is ported)"
+        )
+
+
+def plan_arrays_for(cfg: "EngineConfig", plans: Sequence[SearchPlan], device,
+                    rows: Optional[torch.Tensor] = None,
+                    csr: Optional[CsrUpload] = None) -> AnyPlanArrays:
+    """The one plan-array construction point: dense :class:`PlanArrays` or
+    sparse :class:`CsrPlanArrays` for a pack, per the step backend resolved
+    for its first plan (a pack shares one target, so one resolution).
+    ``rows`` / ``csr`` pass the target already uploaded in that layout."""
+    resolved = resolve_step_backend_for_plan(cfg, plans[0])
+    if resolved == "csr":
+        return make_csr_pack_arrays(plans, device, csr=csr)
+    if is_csr_only(plans[0]):
+        raise ValueError(
+            "plan is CSR-only (built by build_csr_plan: dense adj_bits were "
+            "never materialized) — run it with step_backend='csr' or 'auto'"
+        )
+    return make_pack_arrays(plans, device, rows=rows)
+
+
+def csr_shape_bucket(plan: SearchPlan) -> Tuple[int, ...]:
+    """``(nnz_pad, *bucket_caps)``: the padded shape of a plan's CSR arrays
+    with the pow2 degree-bucket ladder, ``repro``'s extra pack key under the
+    csr backend."""
+    cp = plan_csr(plan)
+    return (_pad_nnz(cp.nnz),) + deg_bucket_caps(_pad_deg_cap(cp.deg_cap))
 
 
 # ---------------------------------------------------------------------------
@@ -301,8 +492,86 @@ class PallasStepBackend(_PackLanes):
         )
 
 
-def make_step_backend(cfg: "EngineConfig", plan: PlanArrays) -> StepBackend:
-    if cfg.step_backend == "jnp":
+class CsrStepBackend(_PackLanes):
+    """The sparse step: child candidates come from a CSR walk instead of the
+    dense-row AND-tree.
+
+    Per lane, the lead (first mapped) parent's segment proposes
+    candidates; each survives iff its bit is set in ``dom[pos+1] ∧ ¬used'``
+    and a binary search finds it in every other mapped parent's sorted
+    segment.  Survivors scatter back into the ``[w]`` candidate bitmap the
+    stack stores, so every downstream structure is identical to the dense
+    backends; parentless positions keep ``dom ∧ ¬used``.
+
+    PyTorch computes what the walk's inputs need up front — the extracted
+    ``v`` extends the mapping, whose mapped parents select the segments —
+    and the ``map2`` / ``used2`` payloads.  The rest is one call: K7
+    (``csr_walk="bucketed"``) or K6 (``"flat"``) with ``use_pallas``, their
+    plain versions without.  As in :class:`PallasStepBackend`, each lane's
+    depth is shifted by ``n_p_max - n_p`` of its query."""
+
+    name = "csr"
+
+    def __init__(self, cfg: "EngineConfig", plan: CsrPlanArrays):
+        super().__init__(cfg, plan)
+        self.depth_shift = plan.n_p_max - self.n_p
+        self.n_planes = plan.indptr.shape[0]
+        self.n_t = plan.indptr.shape[1] - 1
+        bucketed = cfg.csr_walk == "bucketed"
+        if cfg.use_pallas:
+            self._step = kops.csr_extend_bucketed if bucketed else kops.csr_extend
+        else:
+            self._step = kref.csr_extend_bucketed_ref if bucketed else kref.csr_extend_ref
+
+    def _segments(self, row: torch.Tensor, map2: torch.Tensor):
+        """Per-lane CSR segment bounds of the parents of stacked plan row
+        ``row``: ``(start, length)`` int32 ``[B, mp]``, length ``-1`` on
+        unused parent slots."""
+        plan = self.plan
+        r = row.long()
+        pp, pd, pe = plan.parent_pos[r], plan.parent_dir[r], plan.parent_elab[r]
+        t = map2.gather(1, pp.clamp_min(0).long())
+        t = torch.where(pp >= 0, t, 0).clamp(0, self.n_t - 1).long()
+        plane = (pe * 2 + pd).clamp(0, self.n_planes - 1).long()
+        start = plan.indptr[plane, t]
+        length = plan.indptr[plane, t + 1] - start
+        return start, torch.where(pp >= 0, length, -1).to(torch.int32)
+
+    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+        plan = self.plan
+        valid, v, _ = pop_lowest_bit(cand)
+        map2, used2 = _extend_payload(depth, map_, used, valid, v, self.p_pad, self.w)
+        child_row = self.rows_at(depth + 1)
+        start, length = self._segments(child_row, map2)
+        cand2, child, meta = self._step(
+            plan.indices, plan.dom_bits, start, length, child_row.to(torch.int32),
+            (depth + self.depth_shift).to(torch.int32), plan.n_p_max, used, cand,
+            deg_cap=plan.deg_cap,
+        )
+        return StepLanes(
+            valid=meta[:, 0] != 0,
+            v=meta[:, 1],
+            is_match=meta[:, 2] != 0,
+            has_child=meta[:, 3] != 0,
+            cand2=cand2,
+            map2=map2,
+            used2=used2,
+            child_cand=child,
+        )
+
+
+def make_step_backend(cfg: "EngineConfig", plan: AnyPlanArrays) -> StepBackend:
+    """Backend for ``cfg`` over ``plan``; the array layout must match the
+    resolved backend (:func:`plan_arrays_for` guarantees it; ``"auto"``
+    resolves by layout here)."""
+    if isinstance(plan, CsrPlanArrays):
+        if cfg.step_backend not in ("csr", "auto"):
+            raise ValueError(f"step_backend={cfg.step_backend!r} cannot run CsrPlanArrays")
+        return CsrStepBackend(cfg, plan)
+    if cfg.step_backend == "csr":
+        raise ValueError("step_backend='csr' needs CsrPlanArrays "
+                         "(build them with make_csr_plan_arrays / plan_arrays_for)")
+    if cfg.step_backend in ("jnp", "auto"):
         return JnpStepBackend(cfg, plan)
     if cfg.step_backend == "pallas":
         return PallasStepBackend(cfg, plan)
@@ -315,7 +584,7 @@ def make_step_backend(cfg: "EngineConfig", plan: PlanArrays) -> StepBackend:
 # the shared expansion step (frontier pop -> backend -> counters -> push)
 # ---------------------------------------------------------------------------
 
-def make_step_fn(cfg: "EngineConfig", plan: PlanArrays):
+def make_step_fn(cfg: "EngineConfig", plan: AnyPlanArrays):
     """Build one full expansion step ``(EngineState, active) -> EngineState``
     over every lane of a pack.
 

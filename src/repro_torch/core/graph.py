@@ -1,13 +1,19 @@
 """Graph representations for subgraph enumeration (host side, numpy).
 
-A copy of the dense half of ``repro.core.graph``, kept here so that the
+A copy of ``repro.core.graph`` (all but the out-of-core partitioning and
+the incremental plane patching of later slices), kept here so that the
 port imports nothing of the JAX package:
 
 * :class:`Graph` — a labeled directed graph (undirected graphs store both
   arcs).  Preprocessing (ordering, domains) and the sequential oracle read it.
-* :class:`PackedGraph` — the packed-bitmap adjacency the engine runs on.
-  Row ``u`` of plane ``[l, 0]`` has bit ``v`` set iff the edge ``(u, v)``
-  with label ``l`` exists; plane ``[l, 1]`` holds the reverse direction.
+* :class:`PackedGraph` — the packed-bitmap adjacency the dense engine runs
+  on.  Row ``u`` of plane ``[l, 0]`` has bit ``v`` set iff the edge
+  ``(u, v)`` with label ``l`` exists; plane ``[l, 1]`` holds the reverse
+  direction.
+* :class:`CsrPlanes` — the same adjacency as sorted, deduplicated CSR rows
+  per ``(edge_label, direction)`` plane: the layout of the sparse engine
+  (``step_backend="csr"``), ``O(nnz + n_planes · n_t)`` words instead of
+  the bitmaps' ``O(n_planes · n_t · w)``.
 
 Bitmaps here are ``uint32`` words; the engine carries the same bits as
 ``int32`` tensors (`repro_torch.core.extend.make_plan_arrays`).
@@ -112,6 +118,48 @@ class Graph:
     def neighbors(self, u: int) -> np.ndarray:
         return np.unique(np.concatenate([self.out_neighbors(u), self.in_neighbors(u)]))
 
+    def csr(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Out-adjacency CSR: (indptr [n+1], indices [m], edge_labels [m]).
+
+        ``indices`` are sorted within each row (by destination, then edge
+        label for parallel edges); duplicate edges are kept — this is an
+        edge-list CSR, and :meth:`csr_planes` dedupes.
+        """
+        order = np.lexsort((self.edge_labels, self.dst, self.src))
+        indptr = np.zeros(self.n + 1, dtype=np.int64)
+        if self.m:
+            np.add.at(indptr, self.src.astype(np.int64) + 1, 1)
+        indptr = np.cumsum(indptr)
+        return indptr, self.dst[order], self.edge_labels[order]
+
+    def csr_planes(self, n_elab: Optional[int] = None) -> "CsrPlanes":
+        """Per-``(edge_label, direction)`` canonical CSR adjacency planes —
+        the sparse twin of :meth:`adjacency_bitmaps` (see :class:`CsrPlanes`).
+
+        Plane ``l*2 + 0`` row ``u`` lists ``v`` with ``(u, v) ∈ E`` label
+        ``l``; plane ``l*2 + 1`` row ``u`` lists ``v`` with ``(v, u) ∈ E``.
+        Rows are sorted ascending and deduplicated, so each plane is bit for
+        bit the dense bitmap's support.
+        """
+        nl = n_elab if n_elab is not None else self.n_edge_labels
+        if self.m and int(self.edge_labels.max()) >= nl:
+            raise ValueError(
+                f"edge label {int(self.edge_labels.max())} >= n_elab={nl}"
+            )
+        n = self.n
+        # flat row keys: (elab * 2 + dir) * n + row_node
+        out_key = (self.edge_labels.astype(np.int64) * 2 + 0) * n + self.src
+        in_key = (self.edge_labels.astype(np.int64) * 2 + 1) * n + self.dst
+        keys = np.concatenate([out_key, in_key])
+        cols = np.concatenate([self.dst, self.src]).astype(np.int64)
+        order = np.lexsort((cols, keys))
+        keys, cols = keys[order], cols[order]
+        if keys.size:
+            keep = np.ones(keys.size, dtype=bool)
+            keep[1:] = (keys[1:] != keys[:-1]) | (cols[1:] != cols[:-1])
+            keys, cols = keys[keep], cols[keep]
+        return _assemble_csr_planes(keys, cols, 2 * nl, n)
+
     def adjacency_bitmaps(self, w: Optional[int] = None) -> np.ndarray:
         """Packed adjacency bitmaps ``[n_edge_labels, 2, n, w]`` uint32.
 
@@ -166,6 +214,152 @@ class PackedGraph:
     @property
     def n_edge_labels(self) -> int:
         return int(self.adj_bits.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrPlanes:
+    """Canonical per-``(edge_label, direction)`` CSR adjacency (host numpy)
+    — the layout behind the engine's ``step_backend="csr"``.
+
+    One flat ``indices`` array holds every plane's rows back to back;
+    ``indptr[p, t]`` / ``indptr[p, t + 1]`` bound row ``t`` of plane
+    ``p = elab * 2 + dir`` as **global** offsets into ``indices`` (so
+    ``indptr[p, n_t] == indptr[p + 1, 0]``).  Rows are sorted ascending and
+    deduplicated; an isolated vertex is a zero-length run.
+    """
+
+    n_t: int
+    indptr: np.ndarray  # [n_planes, n_t + 1] int32, global offsets
+    indices: np.ndarray  # [nnz] int32, sorted + deduped per row
+    deg_cap: int  # max row length over all planes
+
+    @property
+    def n_planes(self) -> int:
+        return int(self.indptr.shape[0])
+
+    @property
+    def n_edge_labels(self) -> int:
+        return self.n_planes // 2
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    @property
+    def nbytes(self) -> int:
+        return int(self.indptr.nbytes + self.indices.nbytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrPlaneSet:
+    """Per-plane CSR adjacency with independently owned buffers: plane
+    ``p = elab * 2 + dir`` owns ``indptrs[p]`` (``[n_t + 1]`` int64,
+    plane-local offsets) and ``indices[p]`` (``[nnz_p]`` int32).  The
+    incremental index update of a later slice patches single planes of it;
+    :meth:`to_planes` concatenates back to the flat :class:`CsrPlanes`."""
+
+    n_t: int
+    indptrs: Tuple[np.ndarray, ...]
+    indices: Tuple[np.ndarray, ...]
+
+    @property
+    def n_planes(self) -> int:
+        return len(self.indptrs)
+
+    @property
+    def nnz(self) -> int:
+        return sum(int(ix.shape[0]) for ix in self.indices)
+
+    @staticmethod
+    def from_bitmaps(adj_bits: np.ndarray) -> "CsrPlaneSet":
+        """Split the canonical flat planes of ``adj_bits`` into per-plane
+        buffers (row content bit-identical to :func:`csr_planes_from_bitmaps`)."""
+        flat = csr_planes_from_bitmaps(adj_bits)
+        base = flat.indptr.astype(np.int64)
+        indptrs, indices = [], []
+        for p in range(flat.n_planes):
+            ptr = base[p]
+            indptrs.append(np.ascontiguousarray(ptr - ptr[0]))
+            indices.append(np.ascontiguousarray(flat.indices[ptr[0] : ptr[-1]]))
+        return CsrPlaneSet(n_t=flat.n_t, indptrs=tuple(indptrs), indices=tuple(indices))
+
+    def to_planes(self) -> CsrPlanes:
+        """Concatenate to the canonical flat :class:`CsrPlanes` layout (rows
+        are already canonical; only the global offsets are recomputed)."""
+        offsets = np.zeros(self.n_planes + 1, dtype=np.int64)
+        np.cumsum([ix.shape[0] for ix in self.indices], out=offsets[1:])
+        indptr = np.stack(
+            [self.indptrs[p] + offsets[p] for p in range(self.n_planes)]
+        ).astype(np.int32)
+        flat = (
+            np.concatenate(self.indices)
+            if self.n_planes
+            else np.zeros(0, dtype=np.int32)
+        )
+        deg_cap = max(
+            (int(np.diff(ptr).max()) for ptr in self.indptrs if ptr.shape[0] > 1),
+            default=0,
+        )
+        return CsrPlanes(
+            n_t=self.n_t, indptr=indptr, indices=flat.astype(np.int32), deg_cap=deg_cap
+        )
+
+
+def _assemble_csr_planes(
+    row_keys: np.ndarray, cols: np.ndarray, n_planes: int, n_t: int
+) -> CsrPlanes:
+    """:class:`CsrPlanes` from sorted, deduped flat row keys
+    ``plane * n_t + row`` and their columns — shared by both builders
+    (:meth:`Graph.csr_planes`, :func:`csr_planes_from_bitmaps`) so they stay
+    bit-identical."""
+    counts = np.bincount(row_keys, minlength=n_planes * n_t).astype(np.int64)
+    flat_ptr = np.zeros(n_planes * n_t + 1, dtype=np.int64)
+    np.cumsum(counts, out=flat_ptr[1:])
+    if n_t:
+        # overlapping [n_planes, n_t + 1] view: row p = flat_ptr[p*n : p*n+n+1]
+        indptr = np.stack(
+            [flat_ptr[p * n_t : p * n_t + n_t + 1] for p in range(n_planes)]
+        ).astype(np.int32)
+        deg_cap = int(counts.max()) if counts.size else 0
+    else:
+        indptr = np.zeros((n_planes, 1), dtype=np.int32)
+        deg_cap = 0
+    return CsrPlanes(
+        n_t=n_t, indptr=indptr, indices=cols.astype(np.int32), deg_cap=deg_cap
+    )
+
+
+def csr_planes_from_bitmaps(adj_bits: np.ndarray) -> CsrPlanes:
+    """Dense ``[n_elab, 2, n_t, w]`` adjacency bitmaps as :class:`CsrPlanes`
+    (bit for bit the same adjacency relation), so the CSR step backend can
+    run any dense-built plan."""
+    ne, two, n_t, w = adj_bits.shape
+    flat = np.ascontiguousarray(adj_bits.reshape(ne * two * n_t, w))
+    # uint32 LSB-first bit unpacking: little-endian byte view + little bitorder
+    expanded = np.unpackbits(
+        flat.astype("<u4").view(np.uint8).reshape(flat.shape[0], w * 4),
+        axis=1, bitorder="little",
+    )
+    rows, cols = np.nonzero(expanded[:, : max(n_t, 1)])
+    return _assemble_csr_planes(rows, cols, ne * two, n_t)
+
+
+def deg_bucket_caps(deg_cap: int, base: int = 8) -> Tuple[int, ...]:
+    """Pow2 ladder of per-bucket degree caps covering rows up to ``deg_cap``:
+    ``(base, 2·base, 4·base, …)`` until the last cap reaches ``deg_cap``.
+    The bucketed CSR walk caps each lane at its row's bucket."""
+    base = max(1, base)
+    caps = [base]
+    while caps[-1] < deg_cap:
+        caps.append(caps[-1] * 2)
+    return tuple(caps)
+
+
+def deg_bucket_index(deg: np.ndarray, caps: Sequence[int]) -> np.ndarray:
+    """Bucket index per row length (``deg == 0`` maps to bucket 0)."""
+    caps = np.asarray(caps, dtype=np.int64)
+    return np.searchsorted(caps, np.maximum(np.asarray(deg, dtype=np.int64), 1),
+                           side="left").astype(np.int64)
 
 
 def bitmap_from_indices(idx: np.ndarray, n: int, w: Optional[int] = None) -> np.ndarray:

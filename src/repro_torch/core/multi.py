@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence
 
 from repro_torch.core import engine as eng
 from repro_torch.core.engine import EngineConfig
-from repro_torch.core.extend import make_pack_arrays
+from repro_torch.core.extend import plan_arrays_for
 from repro_torch.core.frontier import EngineState, init_state, stack_states
 from repro_torch.core.graph import Graph
 from repro_torch.core.plan import SearchPlan
@@ -37,7 +37,7 @@ def run_batch(plans: Sequence[SearchPlan], cfg: EngineConfig, device=None) -> En
     one lane).  Prefer :meth:`Enumerator.run_batch`, which adds LPT
     balancing and key grouping."""
     device = eng.resolve_device(device)
-    arrays = make_pack_arrays(plans, device)
+    arrays = plan_arrays_for(cfg, plans, device)
     states = stack_states([init_state(p, cfg, device) for p in plans])
     return eng._engine_loop(cfg, arrays, states)
 

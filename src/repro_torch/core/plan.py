@@ -1,9 +1,12 @@
 """SearchPlan — the static preprocessing product handed to the engine.
 
-A copy of the dense half of ``repro.core.plan``.  Ordering and domains run
-on the host in numpy (domains from the numpy oracle
-`repro_torch.core.domains.compute_domains`); the engine uploads the arrays
-once per query (`repro_torch.core.extend.make_plan_arrays`).
+A copy of ``repro.core.plan`` (all but edge seeding).  Ordering runs on
+the host in numpy; domains come from the numpy oracle
+`repro_torch.core.domains.compute_domains` (:func:`build_plan`), or, for a
+**CSR-only** plan (:func:`build_csr_plan`), from the host initial domains
+or the CSR-native device fixpoint, never materializing dense adjacency
+bitmaps.  The engine uploads the arrays once per query
+(`repro_torch.core.extend.plan_arrays_for`).
 
 Pattern self-loops never appear in the parent tables (both endpoints share
 one ordering position); they are enforced as unary constraints baked into
@@ -21,13 +24,13 @@ Variants (paper terminology):
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 
 from repro_torch.core import domains as dom_mod
 from repro_torch.core import ordering as ord_mod
-from repro_torch.core.graph import Graph, PackedGraph, popcount
+from repro_torch.core.graph import CsrPlanes, Graph, PackedGraph, n_words, popcount
 
 VARIANTS = ("ri", "ri-ds", "ri-ds-si", "ri-ds-si-fc", "ri-ds-si-acfc")
 
@@ -66,8 +69,18 @@ class SearchPlan:
     parent_elab: np.ndarray  # [p_pad, max_parents] int32
     n_parents: np.ndarray  # [p_pad] int32
     dom_bits: np.ndarray  # [p_pad, w] uint32 — domain of order[i], position space
-    adj_bits: np.ndarray  # [n_elab, 2, n_t, w] uint32
+    adj_bits: np.ndarray  # [n_elab, 2, n_t, w] uint32 ([n_elab, 2, 0, w] when
+    # the plan is CSR-only — see ``csr`` and :func:`build_csr_plan`)
     satisfiable: bool
+    # Sparse adjacency: set by build_csr_plan (then adj_bits is an empty
+    # placeholder and only step_backend="csr" can run the plan), or derived
+    # from adj_bits and cached by `repro_torch.core.extend.plan_csr`.
+    csr: Optional[CsrPlanes] = None
+    # Lazy CsrPlanes supplier (a session passes its index's cached planes),
+    # consulted by `repro_torch.core.extend.plan_csr` when ``csr`` is unset.
+    csr_factory: Optional[Callable[[], CsrPlanes]] = dataclasses.field(
+        default=None, compare=False, repr=False
+    )
     domains: Optional[dom_mod.DomainResult] = dataclasses.field(
         default=None, compare=False, repr=False
     )
@@ -100,10 +113,17 @@ def plan_from_numpy(d: Mapping[str, object]) -> SearchPlan:
     plain value, for example ``{f: getattr(p, f) for f in
     PLAN_ARRAY_FIELDS}`` of a ``repro`` ``SearchPlan``.  Feeding one plan to
     both engines keeps an engine mismatch from hiding behind a
-    preprocessing mismatch."""
+    preprocessing mismatch.  An optional ``"csr"`` entry (an object with
+    ``n_t``, ``indptr``, ``indices`` and ``deg_cap``, such as ``repro``'s
+    ``CsrPlanes``) carries a CSR-only plan's adjacency."""
     missing = [f for f in PLAN_ARRAY_FIELDS if f not in d]
     if missing:
         raise KeyError(f"plan arrays missing {missing}")
+    csr = d.get("csr")
+    if csr is not None:
+        csr = CsrPlanes(n_t=int(csr.n_t), indptr=np.asarray(csr.indptr, dtype=np.int32),
+                        indices=np.asarray(csr.indices, dtype=np.int32),
+                        deg_cap=int(csr.deg_cap))
     return SearchPlan(
         variant=str(d["variant"]),
         n_p=int(d["n_p"]),
@@ -118,6 +138,7 @@ def plan_from_numpy(d: Mapping[str, object]) -> SearchPlan:
         dom_bits=np.asarray(d["dom_bits"], dtype=np.uint32),
         adj_bits=np.asarray(d["adj_bits"], dtype=np.uint32),
         satisfiable=bool(d["satisfiable"]),
+        csr=csr,
     )
 
 
@@ -130,6 +151,7 @@ def build_plan(
     ac_iters: Optional[int] = None,
     domains: Optional[dom_mod.DomainResult] = None,
     anchor: Optional[Tuple[int, ...]] = None,
+    csr_factory: Optional[Callable[[], CsrPlanes]] = None,
     seed_edge=None,
 ) -> SearchPlan:
     """Run preprocessing (domains + ordering) and emit a :class:`SearchPlan`.
@@ -137,7 +159,9 @@ def build_plan(
     ``domains`` short-circuits the domain pipeline with a precomputed
     :class:`~repro_torch.core.domains.DomainResult` matching the variant's
     flags.  ``anchor`` forces the given pattern node ids to the front of
-    the ordering.  Edge-centric seeding (``seed_edge``) is not ported yet.
+    the ordering.  ``csr_factory`` supplies the target's CSR planes when the
+    plan runs under the csr backend.  Edge-centric seeding (``seed_edge``)
+    is not ported yet.
     """
     if seed_edge is not None:
         raise NotImplementedError(
@@ -161,6 +185,72 @@ def build_plan(
     return _assemble_plan(
         pattern, dres, variant, use_ds, use_si, p_pad, max_parents,
         n_t=target.n, w=target.w, adj_bits=target.adj_bits, anchor=anchor,
+        csr_factory=csr_factory,
+    )
+
+
+def build_csr_plan(
+    pattern: Graph,
+    target: Graph,
+    variant: str = "ri",
+    p_pad: Optional[int] = None,
+    max_parents: Optional[int] = None,
+    w: Optional[int] = None,
+    ac_iters: Optional[int] = None,
+    domains: Optional[dom_mod.DomainResult] = None,
+    use_pallas: bool = False,
+    anchor: Optional[Tuple[int, ...]] = None,
+    seed_edge=None,
+    planes: Optional[CsrPlanes] = None,
+    device=None,
+) -> SearchPlan:
+    """Build a **CSR-only** :class:`SearchPlan` straight from a host
+    :class:`Graph`: the dense ``[n_elab, 2, n_t, w]`` adjacency bitmaps are
+    never materialized.  ``plan.adj_bits`` is an empty placeholder and
+    ``plan.csr`` holds the canonical adjacency planes; only
+    ``step_backend="csr"`` (or ``"auto"``) can run the result.
+
+    ``ri`` computes its initial domains on the host; the ``ri-ds*``
+    variants run the CSR-native device fixpoint on ``device`` (default: the
+    CUDA card; `repro_torch.core.domains.compute_domains_csr`, with K8 and
+    K3 when ``use_pallas``).  Domains are bit-identical to :func:`build_plan`
+    for the same variant.  ``domains=`` short-circuits with a precomputed
+    :class:`~repro_torch.core.domains.DomainResult`; ``planes=`` passes
+    already-built :class:`CsrPlanes`.  Edge seeding (``seed_edge``) is not
+    ported yet.
+    """
+    if seed_edge is not None:
+        raise NotImplementedError(
+            "seed_edge= (edge-centric seeding) is not ported yet: "
+            "ROADMAP Queue 1 item 8"
+        )
+    flags = variant_flags(variant)
+    use_ds, use_si = flags["use_ac"], flags["use_si"]
+    w = w or n_words(target.n)
+    n_elab = target.n_edge_labels
+    if planes is None:
+        planes = target.csr_planes(n_elab)
+    if domains is not None:
+        if domains.bits.shape != (pattern.n, w):
+            raise ValueError(
+                f"precomputed domains shape {domains.bits.shape} != "
+                f"{(pattern.n, w)}"
+            )
+        dres = domains
+    else:
+        tgt_arrays = (
+            dom_mod.csr_target_domain_arrays(target, w, planes=planes, device=device)
+            if (use_ds or flags["use_fc"]) else None
+        )
+        dres = dom_mod.compute_domains_sparse(
+            pattern, target, w, use_ac=use_ds, use_fc=flags["use_fc"],
+            interleave=flags["interleave"], use_pallas=use_pallas,
+            ac_iters=ac_iters, tgt_arrays=tgt_arrays,
+        )
+    return _assemble_plan(
+        pattern, dres, variant, use_ds, use_si, p_pad, max_parents,
+        n_t=target.n, w=w, adj_bits=np.zeros((n_elab, 2, 0, w), dtype=np.uint32),
+        anchor=anchor, csr=planes,
     )
 
 
@@ -176,8 +266,11 @@ def _assemble_plan(
     w: int,
     adj_bits: np.ndarray,
     anchor: Optional[Tuple[int, ...]] = None,
+    csr: Optional[CsrPlanes] = None,
+    csr_factory: Optional[Callable[[], CsrPlanes]] = None,
 ) -> SearchPlan:
-    """Ordering + padded-array assembly."""
+    """Ordering + padded-array assembly shared by :func:`build_plan` and
+    :func:`build_csr_plan`."""
     dom_sizes = popcount(dres.bits)
 
     # RI ignores domains when ordering; RI-DS places singletons first (but its
@@ -235,5 +328,7 @@ def _assemble_plan(
         dom_bits=dom_pos,
         adj_bits=adj_bits,
         satisfiable=dres.satisfiable,
+        csr=csr,
+        csr_factory=csr_factory,
         domains=dres,
     )

@@ -2,7 +2,7 @@
 
 :func:`ref_enumerate` is a recursive RI/RI-DS search over a
 :class:`~repro_torch.core.plan.SearchPlan` with plain Python sets (a copy
-of ``repro.core.ref.ref_enumerate`` for dense plans).  Its ``states``
+of ``repro.core.ref.ref_enumerate`` for dense and CSR-only plans).  Its ``states``
 counter is the paper's search-space metric: a state is counted each time a
 consistent extension ``M ∪ {μ_d → v}`` is formed.  The engine must agree
 with it on both matches and states.
@@ -53,7 +53,12 @@ def ref_enumerate(
     def adj(lab: int, d: int, t: int) -> set:
         key = (lab, d, t)
         if key not in adj_sets:
-            adj_sets[key] = set(bitmap_to_indices(plan.adj_bits[lab, d, t]).tolist())
+            if plan.csr is not None and plan.adj_bits.shape[2] == 0:
+                # CSR-only plan (build_csr_plan): read the adjacency plane's row
+                ptr = plan.csr.indptr[lab * 2 + d]
+                adj_sets[key] = set(plan.csr.indices[ptr[t]:ptr[t + 1]].tolist())
+            else:
+                adj_sets[key] = set(bitmap_to_indices(plan.adj_bits[lab, d, t]).tolist())
         return adj_sets[key]
 
     mapping = [-1] * n_p

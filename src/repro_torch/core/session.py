@@ -1,27 +1,35 @@
-"""Prepared-query session API for subgraph enumeration (dense subset).
+"""Prepared-query session API for subgraph enumeration.
 
-A port of the dense half of ``repro.core.session``:
+A port of ``repro.core.session`` (all but dynamic graphs, meshes and the
+out-of-core backend):
 
 * :class:`SubgraphIndex` — a prepared target: the :class:`PackedGraph`
-  bitmaps plus label/degree metadata, built once and reused across queries.
+  bitmaps plus label/degree metadata, built once and reused across
+  queries; or, with ``build(graph, sparse=True)``, a **CSR-only** index
+  whose adjacency is the target's :class:`CsrPlanes` (dense bitmaps never
+  exist — the layout of the paper's 33k-node PDBSv1 targets).
 * :class:`Query` — a pattern compiled against an index into a
   :class:`SearchPlan` padded to a shape bucket (``p_pad ∈ {16, 32, 64,
-  128}``, ``max_parents = 8``).
+  128}``, ``max_parents = 8``); CSR-only against a sparse index.
 * :class:`Enumerator` — the session: an :class:`EngineConfig`, a device,
   and a cache of each index's adjacency on that device (the dominant
-  upload), with
+  upload: bitmaps, or CSR planes under the csr backend), with
 
-    - ``prepare(pattern)``           — host (numpy) preprocessing;
+    - ``prepare(pattern)``           — host (numpy) preprocessing; for a
+      sparse index the CSR-native domain fixpoint on the device;
     - ``prepare_batch(patterns)``    — the AC ⇄ FC domain fixpoint on the
       device for whole same-bucket pattern batches
-      (`repro_torch.core.domains.compute_domains_batch`), the default for
-      raw patterns given to the batched methods;
+      (`repro_torch.core.domains.compute_domains_batch`, over dense planes
+      or CSR segments), the default for raw patterns given to the batched
+      methods;
     - ``run(query)``                 — one query, with its doubled
       ``stack_cap`` overflow retry;
     - ``run_batch(queries)`` / ``stream(queries)`` — LPT-balanced packs of
       same-key queries, each pack one engine run whose steps launch one
       kernel for every lane of the pack; ``run_pack`` runs one given pack.
 
+An explicitly dense step backend (``"jnp"`` / ``"pallas"``) cannot run a
+CSR-only plan; the session raises ``ValueError`` at prepare and run entry.
 Maintaining results under graph edits (``run_delta``) raises
 ``NotImplementedError``, naming the ROADMAP item that brings it.  PyTorch
 compiles nothing here, so ``repro``'s compile cache, its counters and
@@ -53,8 +61,15 @@ from repro_torch.core import engine as eng
 from repro_torch.core import extend
 from repro_torch.core.engine import EngineConfig, EngineResult
 from repro_torch.core.frontier import EngineState, init_state, stack_states
-from repro_torch.core.graph import Graph, PackedGraph, popcount
-from repro_torch.core.plan import SearchPlan, build_plan, variant_flags
+from repro_torch.core.graph import (
+    CsrPlanes,
+    Graph,
+    PackedGraph,
+    csr_planes_from_bitmaps,
+    n_words,
+    popcount,
+)
+from repro_torch.core.plan import SearchPlan, build_csr_plan, build_plan, variant_flags
 from repro_torch.core.scheduler import balance_assignment
 
 # Padded pattern-position buckets: every plan's ``p_pad`` snaps up to one of
@@ -113,8 +128,15 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 class SubgraphIndex:
     """A target graph prepared for repeated querying (host numpy).
 
-    ``fingerprint`` is a content hash of the packed target; an
+    ``fingerprint`` is a content hash of the target; an
     :class:`Enumerator` keys its device copy of the adjacency by it.
+
+    A **sparse** index (``build(graph, sparse=True)``) never materializes
+    the dense adjacency bitmaps: ``packed`` is a metadata shell whose
+    ``adj_bits`` has a zero node axis, ``graph`` keeps the host
+    :class:`Graph` for CSR-native preprocessing, and the canonical
+    :class:`CsrPlanes` are built eagerly.  Plans built against it are
+    CSR-only (only the ``csr`` / ``auto`` step backends run them).
     """
 
     packed: PackedGraph
@@ -123,6 +145,11 @@ class SubgraphIndex:
     max_degree: int
     build_s: float
     fingerprint: str = ""
+    sparse: bool = False
+    graph: Optional[Graph] = dataclasses.field(default=None, repr=False, compare=False)
+    # the CSR planes, built lazily for a dense index (eagerly for a sparse one)
+    _csr_flat: Optional[CsrPlanes] = dataclasses.field(default=None, repr=False,
+                                                       compare=False)
 
     @staticmethod
     def build(
@@ -132,7 +159,7 @@ class SubgraphIndex:
         if isinstance(target, SubgraphIndex):
             return target
         if sparse:
-            raise _not_ported("SubgraphIndex.build(sparse=True)", "7 (sparse path)")
+            return SubgraphIndex._build_sparse(target)
         t0 = time.perf_counter()
         packed = target if isinstance(target, PackedGraph) else PackedGraph.from_graph(target)
         n_labels = int(packed.labels.max()) + 1 if packed.n else 0
@@ -147,6 +174,46 @@ class SubgraphIndex:
             fingerprint=_fingerprint_packed(packed),
         )
 
+    @staticmethod
+    def _build_sparse(target: Graph) -> "SubgraphIndex":
+        """CSR-only index of a host :class:`Graph`: the packed form is a
+        metadata shell (labels and degrees, plus an ``adj_bits`` placeholder
+        with a zero node axis) and the canonical :class:`CsrPlanes` are the
+        adjacency."""
+        if not isinstance(target, Graph):
+            raise TypeError(
+                "SubgraphIndex.build(sparse=True) needs a host Graph — a "
+                f"{type(target).__name__} has already materialized (or "
+                "implies) the dense bitmaps"
+            )
+        t0 = time.perf_counter()
+        w = n_words(target.n)
+        nl = target.n_edge_labels
+        planes = target.csr_planes(nl)
+        labels = np.asarray(target.labels, dtype=np.int32)
+        packed = PackedGraph(
+            n=target.n,
+            w=w,
+            adj_bits=np.zeros((nl, 2, 0, w), dtype=np.uint32),
+            labels=labels,
+            deg_out=target.out_degrees(),
+            deg_in=target.in_degrees(),
+        )
+        n_labels = int(labels.max()) + 1 if target.n else 0
+        counts = np.bincount(labels, minlength=max(n_labels, 1)).astype(np.int64)
+        degs = packed.deg_out + packed.deg_in
+        return SubgraphIndex(
+            packed=packed,
+            n_labels=n_labels,
+            label_counts=counts,
+            max_degree=int(degs.max()) if target.n else 0,
+            build_s=time.perf_counter() - t0,
+            fingerprint=_fingerprint_sparse(planes, labels, target.n, w),
+            sparse=True,
+            graph=target,
+            _csr_flat=planes,
+        )
+
     @property
     def n(self) -> int:
         return self.packed.n
@@ -159,6 +226,14 @@ class SubgraphIndex:
     def n_edge_labels(self) -> int:
         return self.packed.n_edge_labels
 
+    def csr_planes(self) -> CsrPlanes:
+        """The index's canonical :class:`CsrPlanes` (cached): plans built
+        against it read them through their ``csr_factory``, so the csr
+        backend never re-derives planes per plan."""
+        if self._csr_flat is None:
+            object.__setattr__(self, "_csr_flat", csr_planes_from_bitmaps(self.packed.adj_bits))
+        return self._csr_flat
+
 
 def _fingerprint_packed(packed: PackedGraph) -> str:
     """Content hash of a packed target (the same bytes as ``repro``'s)."""
@@ -166,6 +241,17 @@ def _fingerprint_packed(packed: PackedGraph) -> str:
     h.update(repr((packed.n, packed.w, packed.adj_bits.shape)).encode())
     h.update(np.ascontiguousarray(packed.adj_bits).tobytes())
     h.update(np.ascontiguousarray(packed.labels).tobytes())
+    return h.hexdigest()
+
+
+def _fingerprint_sparse(planes: CsrPlanes, labels: np.ndarray, n: int, w: int) -> str:
+    """Content hash of a sparse index: shapes, CSR adjacency and node
+    labels (the same bytes as ``repro``'s)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(repr((n, w, planes.n_planes, planes.nnz, "csr")).encode())
+    h.update(np.ascontiguousarray(planes.indptr).tobytes())
+    h.update(np.ascontiguousarray(planes.indices).tobytes())
+    h.update(np.ascontiguousarray(labels).tobytes())
     return h.hexdigest()
 
 
@@ -209,19 +295,32 @@ def prepare_query(
     p_pad: Optional[int] = None,
     max_parents: Optional[int] = None,
     seed_edge=None,
+    device=None,
+    use_pallas: bool = False,
 ) -> Query:
-    """Compile ``pattern`` against ``index`` into a bucketed :class:`Query`
-    (host preprocessing: numpy domains, ordering, plan)."""
+    """Compile ``pattern`` against ``index`` into a bucketed :class:`Query`.
+
+    A dense index runs host preprocessing (numpy domains, ordering, plan).
+    A **sparse** index compiles through
+    :func:`~repro_torch.core.plan.build_csr_plan`: the ``ri-ds*`` variants
+    run the CSR-native domain fixpoint on ``device`` (default: the CUDA
+    card; with K8 and K3 when ``use_pallas``), and the plan is CSR-only.
+    """
     index = SubgraphIndex.build(index)
     t0 = time.perf_counter()
-    plan = build_plan(
-        pattern,
-        index.packed,
-        variant=variant,
-        p_pad=p_pad if p_pad is not None else snap_p_pad(pattern.n),
-        max_parents=max_parents if max_parents is not None else DEFAULT_MAX_PARENTS,
-        seed_edge=seed_edge,
-    )
+    p_pad = p_pad if p_pad is not None else snap_p_pad(pattern.n)
+    max_parents = max_parents if max_parents is not None else DEFAULT_MAX_PARENTS
+    if index.sparse:
+        plan = build_csr_plan(
+            pattern, index.graph, variant=variant, p_pad=p_pad, max_parents=max_parents,
+            w=index.w, seed_edge=seed_edge, planes=index.csr_planes(), device=device,
+            use_pallas=use_pallas,
+        )
+    else:
+        plan = build_plan(
+            pattern, index.packed, variant=variant, p_pad=p_pad, max_parents=max_parents,
+            csr_factory=index.csr_planes, seed_edge=seed_edge,
+        )
     return Query(
         pattern=pattern,
         plan=plan,
@@ -320,8 +419,14 @@ class Enumerator:
 
     ``device=None`` means the CUDA card; without one the constructor raises
     and asks for ``device="cpu"``.  The session uploads each index's
-    adjacency once and keeps the two most recent uploads; the domain
+    adjacency once per layout (dense bitmaps, or CSR planes under the csr
+    backend) and keeps the two most recent uploads of each; the domain
     fixpoint of :meth:`prepare_batch` reads the same upload.
+
+    ``step_backend="auto"`` defers the step backend to the target: queries
+    against targets beyond ``extend.CSR_AUTO_NT`` (32,768) nodes, and every
+    CSR-only query, run the sparse ``csr`` step; smaller dense ones the
+    ``jnp`` step.
     :meth:`cache_stats` counts uploads and reuses.  PyTorch compiles
     nothing here, so ``repro``'s compile counters have no counterpart.
 
@@ -358,8 +463,10 @@ class Enumerator:
         self.device = eng.resolve_device(device)
         self.index = SubgraphIndex.build(index) if index is not None else None
         self._rows: "collections.OrderedDict[str, torch.Tensor]" = collections.OrderedDict()
+        self._csr: "collections.OrderedDict[str, extend.CsrUpload]" = collections.OrderedDict()
         # the domain fixpoint's target arrays, per cached adjacency upload
-        self._dom_targets: Dict[str, dom_mod.TargetDomainArrays] = {}
+        self._dom_targets: Dict[str, Union[dom_mod.TargetDomainArrays,
+                                           dom_mod.CsrTargetDomainArrays]] = {}
         self.uploads = 0
         self.cache_hits = 0
 
@@ -369,47 +476,74 @@ class Enumerator:
         """``uploads`` (adjacency copies made to the device), ``cache_hits``
         (runs that reused one) and current ``entries``."""
         return {"uploads": self.uploads, "cache_hits": self.cache_hits,
-                "entries": len(self._rows)}
+                "entries": len(self._rows) + len(self._csr)}
 
     cache_info = cache_stats
+
+    def _cached(self, cache: "collections.OrderedDict", fp: str, make: Callable):
+        """``cache[fp]``, made by ``make()`` and counted as an upload on a
+        miss (keeping the two most recent entries), as a hit otherwise."""
+        hit = cache.get(fp)
+        if hit is None:
+            hit = cache[fp] = make()
+            self.uploads += 1
+            while len(cache) > _ADJ_CACHE_ENTRIES:
+                old, _ = cache.popitem(last=False)
+                self._dom_targets.pop(old, None)
+        else:
+            cache.move_to_end(fp)
+            self.cache_hits += 1
+        return hit
 
     def _adjacency_rows(self, fp: str, adj_bits: np.ndarray) -> torch.Tensor:
         """The kernels' flattened adjacency of index version ``fp`` on the
         device, uploaded once (:func:`~repro_torch.core.extend.upload_rows`)."""
-        rows = self._rows.get(fp)
-        if rows is None:
-            rows = extend.upload_rows(adj_bits, self.device)
-            self._rows[fp] = rows
-            self.uploads += 1
-            while len(self._rows) > _ADJ_CACHE_ENTRIES:
-                old, _ = self._rows.popitem(last=False)
-                self._dom_targets.pop(old, None)
-        else:
-            self._rows.move_to_end(fp)
-            self.cache_hits += 1
-        return rows
+        return self._cached(self._rows, fp, lambda: extend.upload_rows(adj_bits, self.device))
 
-    def _plan_arrays(self, queries: Sequence[Query]) -> extend.PlanArrays:
-        """The plans of a pack (one coalesce key) on the device, with their
+    def _csr_upload(self, fp: str, planes: Callable[[], CsrPlanes]) -> extend.CsrUpload:
+        """The CSR planes of index version ``fp`` on the device, uploaded
+        once (:func:`~repro_torch.core.extend.upload_csr`)."""
+        return self._cached(self._csr, fp, lambda: extend.upload_csr(planes(), self.device))
+
+    def _plan_arrays(self, queries: Sequence[Query],
+                     cfg: Optional[EngineConfig] = None) -> extend.AnyPlanArrays:
+        """The plans of a pack (one coalesce key) on the device in the
+        layout of the step backend ``cfg`` resolves for them, with their
         index's adjacency uploaded once per index version (hand-built
         queries without an index upload their own)."""
+        cfg = cfg or self.config
         plans = [q.plan for q in queries]
         fp = queries[0].index_fingerprint
         if not fp:
-            return extend.make_pack_arrays(plans, self.device)
+            return extend.plan_arrays_for(cfg, plans, self.device)
+        if extend.resolve_step_backend_for_plan(cfg, plans[0]) == "csr":
+            csr = self._csr_upload(fp, lambda: extend.plan_csr(plans[0]))
+            return extend.plan_arrays_for(cfg, plans, self.device, csr=csr)
         rows = self._adjacency_rows(fp, plans[0].adj_bits)
-        return extend.make_pack_arrays(plans, self.device, rows=rows)
+        return extend.plan_arrays_for(cfg, plans, self.device, rows=rows)
 
-    def _target_domain_arrays(self, index: SubgraphIndex) -> dom_mod.TargetDomainArrays:
-        """The domain fixpoint's target arrays for ``index``: its planes are
-        a view of the session's adjacency upload (``rows[:-1]`` as
-        ``[2 · n_elab, n_t, w]``), so the target is on the device once."""
-        rows = self._adjacency_rows(index.fingerprint, index.packed.adj_bits)
-        arrays = self._dom_targets.get(index.fingerprint)
+    def _target_domain_arrays(self, index: SubgraphIndex):
+        """The domain fixpoint's target arrays for ``index``, built around
+        the session's adjacency upload so the target is on the device once:
+        dense planes as a view of the flattened rows
+        (:class:`~repro_torch.core.domains.TargetDomainArrays`), or, for a
+        sparse index, the CSR segments over the uploaded ``indices``
+        (:class:`~repro_torch.core.domains.CsrTargetDomainArrays`)."""
+        fp = index.fingerprint
+        if index.sparse:
+            upload = self._csr_upload(fp, index.csr_planes)
+            arrays = self._dom_targets.get(fp)
+            if arrays is None:
+                arrays = dom_mod.csr_target_domain_arrays(
+                    index.graph, index.w, planes=index.csr_planes(), upload=upload)
+                self._dom_targets[fp] = arrays
+            return arrays
+        rows = self._adjacency_rows(fp, index.packed.adj_bits)
+        arrays = self._dom_targets.get(fp)
         if arrays is None:
             adj_flat = rows[:-1].view(2 * index.n_edge_labels, index.n, index.w)
             arrays = dom_mod.target_domain_arrays(index.packed, adj_flat=adj_flat)
-            self._dom_targets[index.fingerprint] = arrays
+            self._dom_targets[fp] = arrays
         return arrays
 
     # -- preparation -------------------------------------------------------
@@ -422,15 +556,23 @@ class Enumerator:
         index: Union[SubgraphIndex, Graph, PackedGraph, None] = None,
         seed_edge=None,
     ) -> Query:
-        """Compile a pattern into a bucketed :class:`Query` for this session."""
+        """Compile a pattern into a bucketed :class:`Query` for this session.
+
+        A sparse index yields a CSR-only plan, whose domain fixpoint runs on
+        this session's device (with K8 and K3 when ``use_pallas``); if the
+        session's step backend is explicitly dense (``"jnp"`` /
+        ``"pallas"``), that combination can never run, so it raises here."""
         idx = index if index is not None else self.index
         if idx is None:
             raise ValueError(
                 "Enumerator has no default SubgraphIndex; pass index= to "
                 "prepare() or construct Enumerator(index, ...)"
             )
-        return prepare_query(pattern, idx, variant=variant or self.variant, name=name,
-                             seed_edge=seed_edge)
+        q = prepare_query(pattern, idx, variant=variant or self.variant, name=name,
+                          seed_edge=seed_edge, device=self.device,
+                          use_pallas=self.config.use_pallas)
+        extend.validate_backend_for_plan(self.config, q.plan)
+        return q
 
     def prepare_batch(
         self,
@@ -447,8 +589,12 @@ class Enumerator:
         with ``use_pallas`` its arc tests and popcounts are the K5 and K3
         kernels).  Results are bit-identical to per-query :meth:`prepare`
         (the numpy oracle).  ``backend='numpy'`` (or
-        ``Enumerator(domain_backend='numpy')``) runs per-query host
-        preprocessing instead.
+        ``Enumerator(domain_backend='numpy')``) runs per-query
+        :meth:`prepare` instead.
+
+        A **sparse** index runs the same grouped fixpoint over its CSR
+        segments (one K8 launch per sweep with ``use_pallas``) and
+        assembles CSR-only plans: dense adjacency bitmaps never exist.
         """
         idx = index if index is not None else self.index
         if idx is None:
@@ -501,14 +647,19 @@ class Enumerator:
             dom_s = (time.perf_counter() - t0) / max(len(idxs), 1)
             for i, dres in zip(idxs, doms):
                 t1 = time.perf_counter()
-                plan = build_plan(
-                    patterns[i],
-                    idx.packed,
-                    variant=variant,
-                    p_pad=snap_p_pad(patterns[i].n),
-                    max_parents=DEFAULT_MAX_PARENTS,
-                    domains=dres,
-                )
+                if idx.sparse:
+                    plan = build_csr_plan(
+                        patterns[i], idx.graph, variant=variant,
+                        p_pad=snap_p_pad(patterns[i].n), max_parents=DEFAULT_MAX_PARENTS,
+                        w=idx.w, domains=dres, planes=idx.csr_planes(),
+                    )
+                else:
+                    plan = build_plan(
+                        patterns[i], idx.packed, variant=variant,
+                        p_pad=snap_p_pad(patterns[i].n), max_parents=DEFAULT_MAX_PARENTS,
+                        domains=dres, csr_factory=idx.csr_planes,
+                    )
+                extend.validate_backend_for_plan(self.config, plan)
                 out[i] = Query(
                     pattern=patterns[i],
                     plan=plan,
@@ -561,7 +712,8 @@ class Enumerator:
 
     def _run_single(self, cfg: EngineConfig, query: Query) -> EngineResult:
         """One engine invocation, a pack of one (no retry)."""
-        arrays = self._plan_arrays([query])
+        extend.validate_backend_for_plan(cfg, query.plan)
+        arrays = self._plan_arrays([query], cfg)
         state = init_state(query.plan, cfg, self.device)
         return eng.result_from_state(eng._engine_loop(cfg, arrays, state), cfg)
 
@@ -599,10 +751,15 @@ class Enumerator:
         The key is the shape bucket ``(p_pad, max_parents, n_t, w,
         n_elab)`` plus the query's index fingerprint — queries against
         different contents never share a pack, since a pack reads one
-        adjacency.  ``cfg`` is accepted for ``repro``'s signature; the
-        dense keys do not depend on it.
+        adjacency.  Under the csr backend (as ``cfg``, default the
+        session's, resolves it) it also carries the plan's padded CSR shape
+        (:func:`~repro_torch.core.extend.csr_shape_bucket`), as in ``repro``.
         """
-        return query.bucket + (query.index_fingerprint,)
+        cfg = cfg or self.config
+        key = query.bucket + (query.index_fingerprint,)
+        if extend.resolve_step_backend_for_plan(cfg, query.plan) == "csr":
+            key = key + extend.csr_shape_bucket(query.plan)
+        return key
 
     def run_pack(
         self,
@@ -694,7 +851,9 @@ class Enumerator:
         its lanes."""
         t0 = time.perf_counter()
         pack = [qs[i] for i in members]
-        arrays = self._plan_arrays(pack + [pack[0]] * (pack_size - len(pack)))
+        for q in pack:
+            extend.validate_backend_for_plan(cfg, q.plan)
+        arrays = self._plan_arrays(pack + [pack[0]] * (pack_size - len(pack)), cfg)
         states = [init_state(q.plan, cfg, self.device) for q in pack]
         states += [_inert_state(states[0])] * (pack_size - len(pack))
         final = eng._engine_loop(cfg, arrays, stack_states(states))

@@ -1,4 +1,6 @@
-"""Synthetic SGE collections: a copy of ``repro.data.graphgen``'s graph half.
+"""Synthetic SGE collections: a copy of ``repro.data.graphgen``'s graph half
+(``random_graph``, ``power_law_graph``, ``extract_pattern``,
+``make_collection``).
 
 Scaled analogues of the paper's three data sets (Table 1), with patterns
 extracted as connected subgraphs (so each has at least one match), sized by
@@ -45,6 +47,60 @@ def random_graph(
     elabels = rng.integers(0, n_edge_labels, len(edges)).astype(np.int32)
     return Graph.from_edges(n, edges, labels=labels, edge_labels=elabels, undirected=undirected)
 
+
+def power_law_graph(
+    n: int,
+    avg_deg: float = 4.0,
+    alpha: float = 2.0,
+    n_labels: int = 8,
+    n_edge_labels: int = 1,
+    undirected: bool = True,
+    seed: int = 0,
+) -> Graph:
+    """Random graph with power-law degree skew — the ``n_t ≫ lanes``
+    sparse regime the CSR step backend targets.
+
+    Endpoints are sampled with probability ∝ ``rank^-alpha`` (ranks
+    permuted over node ids), so a few hubs carry long neighbor rows while
+    the tail is near-isolated; ``avg_deg`` fixes the expected mean degree.
+    Duplicate pairs and self-loops are dropped, labels are uniform.
+    """
+    rng = np.random.default_rng(seed)
+    m_target = max(1, int(n * avg_deg / 2))
+    w = np.arange(1, n + 1, dtype=np.float64) ** -alpha
+    w = rng.permutation(w)
+    # 30% uniform floor: pure rank^-alpha mass concentrates on a handful of
+    # hubs, whose pairings saturate under dedup and starve the edge budget;
+    # the floor keeps tail pairs flowing while hubs stay hubs.
+    p = 0.7 * w / w.sum() + 0.3 / n
+    seen = set()
+    edges: List[Tuple[int, int]] = []
+    tries = 0
+    # heavy-tailed weights resample hub-hub duplicates often; keep drawing
+    # until the edge budget is met (the yield per round shrinks as hub pairs
+    # saturate, so the bound is generous)
+    while len(edges) < m_target and tries < 64:
+        tries += 1
+        k = 2 * (m_target - len(edges)) + 16
+        us = rng.choice(n, size=k, p=p)
+        vs = rng.choice(n, size=k, p=p)
+        for u, v in zip(us.tolist(), vs.tolist()):
+            if u == v:
+                continue
+            key = (min(u, v), max(u, v)) if undirected else (u, v)
+            if key in seen:
+                continue
+            seen.add(key)
+            edges.append((u, v))
+            if len(edges) >= m_target:
+                break
+    return Graph.from_edges(
+        n,
+        edges,
+        labels=rng.integers(0, n_labels, n).astype(np.int32),
+        edge_labels=rng.integers(0, n_edge_labels, len(edges)).astype(np.int32),
+        undirected=undirected,
+    )
 
 
 def extract_pattern(g: Graph, n_edges: int, seed: int = 0,

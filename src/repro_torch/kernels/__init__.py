@@ -6,8 +6,12 @@
   popcount_reduce — K3, per-row popcount (domain sizes in the device
                     domain fixpoint)
   domain_ac       — K5 adjacency_any (one arc's support test, the batched
-                    fixpoint) and K4 arc_any_sweep (every arc of a sweep,
-                    the single-query fixpoint)
+                    fixpoint), K4 arc_any_sweep (every arc of a sweep,
+                    the single-query fixpoint) and K8 csr_arc_sweep (the
+                    same sweep over CSR planes, the sparse fixpoint)
+  csr_extend      — K6 csr_extend and K7 csr_extend_bucketed, the sparse
+                    expansion step (step_backend="csr" with use_pallas=True;
+                    csr_walk="flat" / "bucketed")
 
 ``ops`` holds the entry points (CUDA tensor → kernel, CPU tensor → plain
 version, launch counts); ``ref`` the plain versions; ``_build`` compiles the

@@ -15,6 +15,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import candidate_mask as _cm
+from repro_torch.kernels import csr_extend as _ce
 from repro_torch.kernels import domain_ac as _ac
 from repro_torch.kernels import extend_step as _es
 from repro_torch.kernels import popcount_reduce as _pc
@@ -73,15 +74,46 @@ def arc_any_sweep(adj_flat, arc_row, masks) -> torch.Tensor:
     return kref.arc_any_sweep_ref(adj_flat, arc_row, masks)
 
 
+def csr_extend(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p, used, cand,
+               deg_cap: int):
+    """K6: the sparse step with the flat ``deg_cap``-wide lead-segment walk;
+    returns ``(cand2, child, meta)`` (see `repro_torch.kernels.csr_extend`)."""
+    if _on_card(cand):
+        return _ce.csr_extend_cuda(indices, dom_bits, seg_start, seg_len, child_pos, depth,
+                                   n_p, used, cand, deg_cap)
+    return kref.csr_extend_ref(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p,
+                               used, cand, deg_cap=deg_cap)
+
+
+def csr_extend_bucketed(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p, used,
+                        cand, deg_cap: int):
+    """K7: the sparse step with the degree-bucketed lead-segment walk; the same
+    bits as K6 (see `repro_torch.kernels.csr_extend`)."""
+    if _on_card(cand):
+        return _ce.csr_extend_bucketed_cuda(indices, dom_bits, seg_start, seg_len, child_pos,
+                                            depth, n_p, used, cand, deg_cap)
+    return kref.csr_extend_bucketed_ref(indices, dom_bits, seg_start, seg_len, child_pos,
+                                        depth, n_p, used, cand, deg_cap=deg_cap)
+
+
+def csr_arc_sweep(seg_start, seg_len, indices, arc_row, masks, deg_cap: int) -> torch.Tensor:
+    """K8: the CSR AC sweep, ``[n_arcs, n_t]`` int32
+    (see `repro_torch.kernels.domain_ac`)."""
+    if _on_card(masks):
+        return _ac.csr_arc_sweep_cuda(seg_start, seg_len, indices, arc_row, masks, deg_cap)
+    return kref.csr_arc_sweep_ref(seg_start, seg_len, indices, arc_row, masks, deg_cap=deg_cap)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"extend_step": _es.launches, "candidate_mask": _cm.launches,
-            "popcount_rows": _pc.launches, **_ac.launches}
+            "popcount_rows": _pc.launches, **_ac.launches, **_ce.launches}
 
 
 def reset_launch_counts() -> None:
     _es.launches = 0
     _cm.launches = 0
     _pc.launches = 0
-    for name in _ac.launches:
-        _ac.launches[name] = 0
+    for counts in (_ac.launches, _ce.launches):
+        for name in counts:
+            counts[name] = 0

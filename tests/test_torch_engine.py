@@ -28,7 +28,6 @@ from repro.core import extend as jax_extend  # noqa: E402
 from repro.core.graph import PackedGraph as JaxPacked  # noqa: E402
 from repro.core.plan import build_plan as jax_build_plan  # noqa: E402
 from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex, enumerate_subgraphs  # noqa: E402
-from repro_torch.core import domains as dom  # noqa: E402
 from repro_torch.core import engine as eng  # noqa: E402
 from repro_torch.core import extend  # noqa: E402
 from repro_torch.core.frontier import EngineState, init_state  # noqa: E402
@@ -173,23 +172,33 @@ def test_cpu_run_launches_no_kernel(rng):
 # what later slices bring is refused, not accepted silently
 # ---------------------------------------------------------------------------
 
+# explicit ids keep the ids these cases had before the sparse path's
+# "csr" / "auto" cases moved to test_sparse_config_values_accepted
 @pytest.mark.parametrize("kw,item", [
-    (dict(step_backend="csr"), "item 7"),
-    (dict(step_backend="auto"), "item 7"),
-    (dict(step_backend="partitioned"), "item 9"),
-    (dict(root_seeding="edge"), "item 8"),
-    (dict(root_seeding="auto"), "item 8"),
+    pytest.param(dict(step_backend="partitioned"), "item 9", id="kw2-item 9"),
+    pytest.param(dict(root_seeding="edge"), "item 8", id="kw3-item 8"),
+    pytest.param(dict(root_seeding="auto"), "item 8", id="kw4-item 8"),
 ])
 def test_later_config_values_refused(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(**kw)
 
 
+@pytest.mark.parametrize("backend", ["csr", "auto"])
+def test_sparse_config_values_accepted(backend):
+    """The sparse path's step backends are accepted, and resolve per target
+    size as repro resolves them (a CSR-only plan always takes csr)."""
+    cfg = EngineConfig(step_backend=backend, csr_walk="flat")
+    jcfg = JaxConfig(step_backend=backend, csr_walk="flat")
+    assert (cfg.step_backend, cfg.csr_walk) == (jcfg.step_backend, jcfg.csr_walk)
+    for n_t in (1, extend.CSR_AUTO_NT, extend.CSR_AUTO_NT + 1, 10 * extend.CSR_AUTO_NT):
+        assert extend.resolve_step_backend(cfg, n_t) == jax_extend.resolve_step_backend(
+            jcfg, n_t)
+
+
 def test_later_session_features_refused(rng):
     tgt, pat = CASES["dense"](rng)
     g, p = to_port(tgt), to_port(pat)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        SubgraphIndex.build(g, sparse=True)
     with pytest.raises(NotImplementedError, match="item 11"):
         Enumerator(g, mesh=2, device=CPU)
     with pytest.raises(NotImplementedError, match="item 11"):
@@ -199,9 +208,5 @@ def test_later_session_features_refused(rng):
     enum = Enumerator(g, device=CPU)
     with pytest.raises(NotImplementedError, match="item 10"):
         enum.run_delta(enum.prepare(p), [], None)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dom.compute_domains_csr(p, g, 1)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        dom.CsrTargetDomainArrays()
     with pytest.raises(ValueError, match="step_backend"):
         EngineConfig(step_backend="tpu")

@@ -19,7 +19,10 @@ from repro_torch.core import (  # noqa: E402
     Enumerator,
     Graph,
     PackedGraph,
+    SubgraphIndex,
+    build_csr_plan,
     compute_domains_batch,
+    compute_domains_csr,
     compute_domains_device,
     enumerate_many,
     enumerate_subgraphs,
@@ -45,7 +48,8 @@ PORT_MODULES = {
     "repro_torch.core.plan", "repro_torch.core.ref", "repro_torch.core.scheduler",
     "repro_torch.core.session", "repro_torch.data", "repro_torch.data.graphgen",
     "repro_torch.kernels", "repro_torch.kernels._build", "repro_torch.kernels.candidate_mask",
-    "repro_torch.kernels.domain_ac", "repro_torch.kernels.extend_step",
+    "repro_torch.kernels.csr_extend", "repro_torch.kernels.domain_ac",
+    "repro_torch.kernels.extend_step",
     "repro_torch.kernels.ops", "repro_torch.kernels.popcount_reduce",
     "repro_torch.kernels.ref",
 }
@@ -89,7 +93,15 @@ def test_entry_points_default_to_the_card():
         compute_domains_batch([g], PackedGraph.from_graph(g))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         enumerate_many([g], g)
+    # the sparse path: its device fixpoint and sessions default to the card too
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compute_domains_csr(g, g, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_csr_plan(g, g, variant="ri-ds")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Enumerator(SubgraphIndex.build(g, sparse=True), step_backend="csr")
     assert enumerate_subgraphs(g, g, device="cpu").matches == 2
+    assert enumerate_subgraphs(g, g, device="cpu", step_backend="csr").matches == 2
 
 
 def test_chip_smoke_alone_fails_without_result(tmp_path):
