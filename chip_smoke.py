@@ -49,7 +49,24 @@ Phases, each printed as one JSON line:
    16,373), runs one pattern under ``ri`` through K6 and K7, which must
    agree with each other and ``ref_enumerate``; each one's query time is
    printed.  K6, K7 and K8 are checked (0 mismatched words) and timed at
-   full width on both targets' CSR arrays, and at ragged edge cases.
+   full width on both targets' CSR arrays, and at ragged edge cases;
+6. LM serving path — minitron-8b at full width and depth (32 layers,
+   d_model 4,096, 32 heads, 8 KV heads, d_ff 16,384, vocabulary 256,000,
+   bf16, 7.73 B random parameters from a ``torch.Generator``) serves four
+   requests: ``prefill`` of 4,096-token prompts into a 4,112-position
+   cache, then 16 greedy ``decode_step``s.  K9 (``flash_attention``) must
+   launch exactly once per layer in the prefill and never in a decode
+   step, and no other kernel at all.  It prints prefill time and tokens/s,
+   each decode step's time, the generated ids, peak memory and one
+   ``torch.profiler`` breakdown each of a prefill and a decode step.
+   Checks: K9 against its plain version on every layer's own q/k/v of a
+   prefill of the same requests and at ragged and edge shapes (fp32 and
+   bf16); decode against prefill (``tests/test_models_lm.py``'s gate) end
+   to end at depth 1 and 2, and layer by layer from the same inputs at
+   full depth, in bf16 and in fp32 (the fp32 weights after the bf16 ones
+   are freed; deeper end-to-end runs are printed, not gated).  K9 is
+   timed on layer 0's q/k/v beside its plain version and
+   ``scaled_dot_product_attention``.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -73,6 +90,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 # peak 32-bit rate outside the tensor cores (H100 SXM, float32 table entry);
 # the kernels' bit operations run on the same CUDA-core lanes
 LANE_OPS_PER_S = 67e12
+TENSOR_BF16_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 
 # the main path: engine configuration of the paper-size cell and its target
 ENGINE_KW = dict(n_workers=64, expand_width=64, steal_chunk=4, rebalance_interval=8)
@@ -100,6 +118,24 @@ SPARSE_BATCH = 8
 SPARSE_VARIANT = "ri-ds-si-acfc"
 HUB = dict(n=SPARSE_NT, avg_deg=4.0, alpha=1.5, n_labels=32, seed=7)
 HUB_VARIANT = "ri"
+# phase 6, the LM serving path: minitron-8b (repro_torch.configs.minitron_8b.CFG
+# unless LM_CFG is set) at full width and depth in bf16, random weights from
+# LM_SEED; LM_BATCH requests of LM_PROMPT tokens (lm_batch, seed
+# LM_TOKEN_SEED), then LM_DECODE_STEPS greedy decode steps.  The
+# decode-against-prefill checks use the first LM_CHECK_PROMPT + 1 tokens; the
+# per-layer K9 check runs the plain version LM_HEAD_CHUNK heads at a time.
+LM_CFG = None
+LM_SEED = 0
+LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 4, 4096, 16
+LM_TOKEN_SEED = 7
+LM_CHECK_PROMPT = 256
+LM_HEAD_CHUNK = 16
+# K9 edge cases (bh, S, S_kv, d, inputs): one query; ragged lengths; S > S_kv
+# and S < S_kv; d of 16, 64, 80, 128 and 256; every score equal
+K9_EDGES = [(4, 1, 1, 64, "random"), (3, 9, 9, 16, "random"), (2, 200, 200, 80, "random"),
+            (2, 1000, 1000, 128, "random"), (2, 200, 37, 64, "random"),
+            (2, 37, 200, 64, "random"), (2, 1, 1000, 16, "random"),
+            (2, 1000, 1000, 128, "equal"), (1, 130, 130, 256, "random")]
 
 
 def emit(obj) -> None:
@@ -1187,6 +1223,311 @@ def check_sparse_kernels_full(device, fw) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the LM serving path
+# ---------------------------------------------------------------------------
+
+def profile_call(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the card's
+    busy share of it, its kernel launches and the kernels that took the
+    most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return dict(device_time="not measured (no device events traced)")
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    return dict(profiled_wall_s=wall, device_busy_s=busy_us / 1e6,
+                device_busy_share=busy_us / 1e6 / wall,
+                kernel_launches=sum(e.count for e in kernels),
+                top=[dict(name=e.key[:80], count=e.count, device_us=e.self_device_time_total,
+                          share=e.self_device_time_total / busy_us) for e in top])
+
+
+def k9_case(got, q, k, v, tol: float, chunk: int = 0) -> dict:
+    """K9's output ``got`` against the plain version on the same inputs,
+    ``chunk`` rows of the batch·head axis at a time (all at once if 0): an
+    element is off when ``|got - plain| > tol + tol · |plain|``."""
+    from repro_torch.kernels import ref as kref
+
+    chunk = chunk or q.shape[0]
+    bad, err, worst, num, den = 0, 0.0, 0.0, 0.0, 0.0
+    for i in range(0, q.shape[0], chunk):
+        p = kref.flash_attention_ref(q[i:i + chunk], k[i:i + chunk], v[i:i + chunk]).float()
+        g = got[i:i + chunk].float()
+        d = (g - p).abs()
+        lim = tol + tol * p.abs()
+        bad += int((d > lim).sum())
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / lim).max()))
+        num += float(((g - p) ** 2).sum())
+        den += float((p ** 2).sum())
+    return dict(flash_attention_mismatches=bad, flash_attention_err=err, worst_over_tol=worst,
+                rel_l2=(num / den) ** 0.5 if den else 0.0, tol=tol)
+
+
+def check_flash_edges(device) -> list:
+    """K9 against its plain version at ragged and edge shapes, fp32 (tol
+    1e-5: both sum in fp32, in other orders) and bf16 (tol 2e-2: both round
+    one fp32 result to bf16, which may land a unit in the last place apart)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    rng = np.random.default_rng(16)
+    cases = []
+    for bh, s, s_kv, d, kind in K9_EDGES:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            q, k, v = (torch.from_numpy(rng.normal(size=(bh, n, d)).astype(np.float32))
+                       .to(device=device, dtype=dtype) for n in (s, s_kv, s_kv))
+            if kind == "equal":  # every score 0: uniform weights over each causal prefix
+                q = torch.zeros_like(q)
+            got = fa.flash_attention_cuda(q, k, v)
+            torch.cuda.synchronize()
+            cases.append(dict(k9_case(got, q, k, v, tol), bh=bh, s=s, s_kv=s_kv, d=d,
+                              dtype=str(dtype), kind=kind))
+    return cases
+
+
+def k9_timing(q, k, v) -> dict:
+    """K9, its plain version and ``scaled_dot_product_attention`` (the
+    yardstick, never called by the port) on one layer's q/k/v, with the
+    work counted for the bound: QKᵀ and PV over the causal triangle."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref as kref
+
+    bh, s, d = q.shape
+    s_kv = k.shape[1]
+    pairs = sum(min(i + 1, s_kv) for i in range(s))  # (query, key) pairs with key <= query
+    return dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=10),
+                plain_ms=cuda_ms(lambda: kref.flash_attention_ref(q, k, v), reps=3, warmup=1),
+                library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True)),
+                bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
+                ops=4 * bh * d * pairs,
+                ops_per_s=TENSOR_BF16_PER_S if q.dtype == torch.bfloat16 else LANE_OPS_PER_S,
+                shape=[bh, s, s_kv, d], dtype=str(q.dtype))
+
+
+def _depth(params, cfg, n: int):
+    """The first ``n`` layers of a model (views of its parameters)."""
+    import dataclasses
+
+    return (dict(params, layers={k: w[:n] for k, w in params["layers"].items()}),
+            dataclasses.replace(cfg, n_layers=n))
+
+
+def decode_vs_prefill(params, cfg, toks, n: int, tol: float, gate="elementwise") -> dict:
+    """The logits after ``n + 1`` tokens, from a prefill of all of them and
+    from a prefill of ``n`` then one decode step (``tests/test_models_lm.py``'s
+    gate).  ``gate``: ``"elementwise"`` — no element with ``|step - full| >
+    tol + tol · |full|``, as that test asserts; ``"rel_l2"`` — ``‖step -
+    full‖₂ <= tol · ‖full‖₂``; ``None`` — measured only."""
+    from repro_torch.models import transformer as tf
+
+    full, _ = tf.prefill(params, cfg, toks[:, :n + 1], max_len=n + 1)
+    _, cache = tf.prefill(params, cfg, toks[:, :n], max_len=n + 1)
+    step, _ = tf.decode_step(params, cfg, cache, toks[:, n:n + 1], n)
+    d = (step - full).abs()
+    res = dict(layers=cfg.n_layers, dtype=str(cfg.dtype), batch=int(toks.shape[0]), prompt=n,
+               gate=gate, tol=tol, mismatches=int((d > tol + tol * full.abs()).sum()),
+               max_abs_err=float(d.max()), logits_abs_max=float(full.abs().max()),
+               rel_l2=float((step - full).norm() / full.norm()),
+               argmax_equal=bool((step.argmax(-1) == full.argmax(-1)).all()),
+               finite=bool(full.isfinite().all() and step.isfinite().all()))
+    res["ok"] = res["finite"] and (gate is None or (
+        res["mismatches"] == 0 if gate == "elementwise" else res["rel_l2"] <= tol))
+    return res
+
+
+def decode_vs_prefill_per_layer(params, cfg, toks, n: int, tol: float) -> dict:
+    """:func:`decode_vs_prefill` one layer at a time, each from the same input:
+    layer ``l`` takes the hidden states the full prefill gives it and runs
+    once over all ``n + 1`` positions (K9) and once as a prefill of ``n``
+    then a decode step over the cache it wrote.  Position ``n``'s outputs
+    and the caches must agree to ``tol`` of the layer's largest output, so
+    a difference cannot grow through later layers as it does end to end."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    h = tf._embed(params, cfg, toks[:, :n + 1])
+    b = h.shape[0]
+    pos = torch.arange(n + 1, device=h.device).expand(b, n + 1)
+
+    def zero_cache():
+        shape = (b, n + 1, cfg.n_kv_heads, cfg.head_dim)
+        return (torch.zeros(shape, dtype=cfg.dtype, device=h.device),
+                torch.zeros(shape, dtype=cfg.dtype, device=h.device))
+
+    out_err, cache_err = [], []
+    for i in range(cfg.n_layers):
+        lp = tf.layer_params(params, i)
+        full, full_cache = tf._layer(cfg, h, lp, pos, zero_cache(), 0)
+        inc_cache = zero_cache()
+        tf._layer(cfg, h[:, :n], lp, pos[:, :n], inc_cache, 0)
+        step, _ = tf._layer(cfg, h[:, n:], lp, pos[:, n:], inc_cache, n)
+        scale = float(full[:, n].abs().max())
+        out_err.append(float((step[:, 0] - full[:, n]).abs().max()) / scale)
+        cache_err.append(max(float((a.float() - c.float()).abs().max() / c.float().abs().max())
+                             for a, c in zip(inc_cache, full_cache)))
+        h = full
+    return dict(layers=cfg.n_layers, dtype=str(cfg.dtype), batch=b, prompt=n,
+                gate="per_layer", tol=tol, ok=max(out_err + cache_err) <= tol,
+                max_out_err_over_scale=max(out_err), max_cache_err_over_scale=max(cache_err),
+                out_err_over_scale=out_err)
+
+
+def run_lm_path(device):
+    """Phase 6: minitron-8b at full width and depth serves ``LM_BATCH``
+    requests (prefill of ``LM_PROMPT`` tokens, ``LM_DECODE_STEPS`` greedy
+    decode steps) with K9 in every prefill layer; then the checks.  Returns
+    the serving run's launch counts, the K9 timing and the check cases."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import minitron_8b
+    from repro_torch.data import graphgen
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    cfg = LM_CFG or minitron_8b.CFG
+    b, s, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE_STEPS
+    max_len = s + n_dec
+    reduced = [
+        f"prefill batch {minitron_8b.PREFILL_SHAPE['batch']} -> {b}, "
+        f"seq {minitron_8b.PREFILL_SHAPE['seq']} -> {s} (PREFILL_SHAPE)",
+        f"decode batch {minitron_8b.DECODE_SHAPE['batch']} -> {b}, "
+        f"cache {minitron_8b.DECODE_SHAPE['seq']} -> {max_len} (DECODE_SHAPE: "
+        f"{minitron_8b.DECODE_SHAPE['batch']} x {minitron_8b.DECODE_SHAPE['seq']} positions of "
+        f"cache need a sharded pod)",
+        "random weights (seed 0), random prompts (lm_batch seed 7)"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=LM_SEED, device=device)
+    torch.cuda.synchronize(device)
+    emit(dict(phase="lm_setup", model=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+              n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+              vocab=cfg.vocab_size, dtype=str(cfg.dtype), params=cfg.param_count(),
+              weights_gb=sum(w.numel() * w.element_size() for w in
+                             [params["embed"], params["final_norm"], params["lm_head"],
+                              *params["layers"].values()]) / 1e9,
+              init_s=time.perf_counter() - t0, batch=b, prompt=s, decode_steps=n_dec,
+              max_len=max_len, reduced=reduced))
+    toks = torch.from_numpy(graphgen.lm_batch(b, s, cfg.vocab_size, seed=LM_TOKEN_SEED)
+                            ["tokens"]).to(device)
+
+    # warm-up: first use of every op at these shapes
+    logits, cache = tf.prefill(params, cfg, toks, max_len=max_len)
+    tf.decode_step(params, cfg, cache, logits.argmax(-1)[:, None], s)
+    del logits, cache
+
+    # the served requests: launch counts set to 0 just before, read just after
+    torch.cuda.synchronize(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, cfg, toks, max_len=max_len)
+    torch.cuda.synchronize(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = ops.launch_counts()
+    ops.reset_launch_counts()
+    ids = [logits.argmax(-1)]
+    step_ms = []
+    finite = bool(logits.isfinite().all())
+    for i in range(n_dec):
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(params, cfg, cache, ids[-1][:, None], s + i)
+        ids.append(logits.argmax(-1))
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(logits.isfinite().all())
+    decode_counts = ops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if tuple(logits.shape) != (b, cfg.vocab_size) or logits.dtype != torch.float32 or not finite:
+        raise AssertionError(f"LM logits: {tuple(logits.shape)} {logits.dtype} finite={finite}")
+    want_prefill = dict.fromkeys(prefill_counts, 0)
+    want_prefill["flash_attention"] = cfg.n_layers
+    if prefill_counts != want_prefill or any(decode_counts.values()):
+        raise AssertionError(f"LM launches: prefill {prefill_counts}, "
+                             f"{n_dec} decode steps {decode_counts}")
+    emit(dict(phase="lm_path", prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+              decode_ms_per_step=step_ms, decode_ms_median=statistics.median(step_ms),
+              decode_tokens_per_s=b * 1e3 / statistics.median(step_ms),
+              generated=torch.stack(ids, dim=1).tolist(), peak_memory_gb=peak_gb,
+              prefill_launches=prefill_counts, decode_launches=decode_counts,
+              prefill_profile=profile_call(lambda: tf.prefill(params, cfg, toks,
+                                                              max_len=max_len)),
+              decode_profile=profile_call(lambda: tf.decode_step(
+                  params, cfg, cache, ids[-1][:, None], max_len - 1))))
+    del logits, cache
+
+    # K9 against its plain version on every layer's own q/k/v (a prefill of
+    # the same requests with each K9 call checked), then timed on layer 0's
+    per_layer, first = [], {}
+    flash = ops.flash_attention
+
+    def checked(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        per_layer.append(k9_case(out, q, k, v, 2e-2, chunk=LM_HEAD_CHUNK))
+        first.setdefault("qkv", (q, k, v))
+        return out
+
+    ops.flash_attention = checked
+    try:
+        tf.prefill(params, cfg, toks, max_len=max_len)
+    finally:
+        ops.flash_attention = flash
+    timing = k9_timing(*first.pop("qkv"))
+    cases = [dict(c, layer=i, kind="lm_layer") for i, c in enumerate(per_layer)]
+    cases += check_flash_edges(device)
+
+    # decode against prefill, bf16 on the 4 requests and fp32 on the first
+    # (the bf16 weights freed first): end to end at depth 1 and 2, and layer
+    # by layer from the same inputs at full depth.  Deeper end-to-end runs
+    # are measured, not gated: at random init attention is nearly one-hot
+    # and rounding differences grow layer over layer (PERF.md §6).
+    n = LM_CHECK_PROMPT
+    lm_checks = [decode_vs_prefill(*_depth(params, cfg, 1), toks, n, 2e-2),
+                 decode_vs_prefill(*_depth(params, cfg, 2), toks, n, 2e-2, gate="rel_l2"),
+                 decode_vs_prefill_per_layer(params, cfg, toks, n, 2e-2)]
+    del params
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    params = tf.init_params(cfg32, seed=LM_SEED, device=device)
+    lm_checks += [decode_vs_prefill(*_depth(params, cfg32, depth), toks[:1], n, 2e-2,
+                                    gate="elementwise" if depth <= 2 else None)
+                  for depth in sorted({1, 2, 4, 8, cfg.n_layers}) if depth <= cfg.n_layers]
+    lm_checks.append(decode_vs_prefill_per_layer(params, cfg32, toks[:1], n, 1e-4))
+    del params
+    torch.cuda.empty_cache()
+    emit(dict(phase="lm_checks", k9_per_layer=[
+        {k: c[k] for k in ("flash_attention_err", "rel_l2", "worst_over_tol")} for c in cases
+        if c["kind"] == "lm_layer"], k9_edges=[c for c in cases if c["kind"] != "lm_layer"],
+        decode_vs_prefill=lm_checks, k9_timing=timing))
+    bad = [c for c in cases if c["flash_attention_mismatches"]]
+    if bad:
+        raise AssertionError(f"K9 disagrees with its plain version: {bad}")
+    bad = [c for c in lm_checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"decode disagrees with prefill: {bad}")
+    return dict(prefill=prefill_counts, decode=decode_counts), timing, cases
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -1204,6 +1545,9 @@ def main() -> int:
         return 2
 
     device = torch.device("cuda", 0)
+    # the plain versions' fp32 products run in full fp32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
@@ -1246,6 +1590,12 @@ def main() -> int:
     for counts in sparse_launches.values():
         _add(phase5, counts)
 
+    t0 = time.perf_counter()
+    lm_launches, k9_timing_, k9_cases = run_lm_path(device)
+    emit(dict(phase="lm_done", lm_path_s=time.perf_counter() - t0))
+    checks += k9_cases
+    timing["flash_attention"] = k9_timing_
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             replaces="src/repro/kernels/extend_step.py:125",
@@ -1271,12 +1621,16 @@ def main() -> int:
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
                               replaces="src/repro/kernels/domain_ac.py:165",
                               launches=phase5["csr_arc_sweep"]),
+        "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
+                                replaces="src/repro/kernels/flash_attention.py:67",
+                                launches=lm_launches["prefill"]["flash_attention"]
+                                + lm_launches["decode"]["flash_attention"]),
     }
     kernels = []
     for name, m in meta.items():
         t = timing[name]
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = t["ops"] / LANE_OPS_PER_S * 1e3
+        t_ops = t["ops"] / t.get("ops_per_s", LANE_OPS_PER_S) * 1e3
         cases = [c for c in checks if f"{name}_err" in c]
         extra = {k: v for k, v in t.items()
                  if k.startswith(("bound_", "bytes_", "target_b_", "entries_"))}
@@ -1286,7 +1640,7 @@ def main() -> int:
             mismatches=sum(c[f"{name}_mismatches"] for c in cases),
             ms=t["ms"], kernel_ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
-            bytes=t["bytes"], library_ms=None, **extra))
+            bytes=t["bytes"], library_ms=t.get("library_ms"), **extra))
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

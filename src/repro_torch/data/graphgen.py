@@ -1,6 +1,6 @@
-"""Synthetic SGE collections: a copy of ``repro.data.graphgen``'s graph half
-(``random_graph``, ``power_law_graph``, ``extract_pattern``,
-``make_collection``).
+"""Synthetic SGE collections and LM tokens: a copy of
+``repro.data.graphgen``'s graph half (``random_graph``, ``power_law_graph``,
+``extract_pattern``, ``make_collection``) and of its ``lm_batch``.
 
 Scaled analogues of the paper's three data sets (Table 1), with patterns
 extracted as connected subgraphs (so each has at least one match), sized by
@@ -11,7 +11,7 @@ and ``chip_smoke.py`` rely on that.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -214,3 +214,11 @@ def make_collection(
                 k += 1
     return out
 
+
+def lm_batch(batch: int, seq: int, vocab: int, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random token ids ``[batch, seq]`` (int32) and next-token labels (the
+    last one -1), from ``seed``."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)], axis=1)
+    return {"tokens": toks, "labels": labels}

@@ -12,6 +12,8 @@
   csr_extend      — K6 csr_extend and K7 csr_extend_bucketed, the sparse
                     expansion step (step_backend="csr" with use_pallas=True;
                     csr_walk="flat" / "bucketed")
+  flash_attention — K9, causal attention forward (every layer of the LM
+                    path's prefill, `repro_torch.models.transformer`)
 
 ``ops`` holds the entry points (CUDA tensor → kernel, CPU tensor → plain
 version, launch counts); ``ref`` the plain versions; ``_build`` compiles the

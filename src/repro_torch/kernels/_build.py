@@ -26,7 +26,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 KERNELS = ("candidate_mask", "extend_step", "popcount_rows", "adjacency_any", "arc_any_sweep",
-           "csr_extend", "csr_extend_bucketed", "csr_arc_sweep")
+           "csr_extend", "csr_extend_bucketed", "csr_arc_sweep", "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,6 +18,7 @@ from repro_torch.kernels import candidate_mask as _cm
 from repro_torch.kernels import csr_extend as _ce
 from repro_torch.kernels import domain_ac as _ac
 from repro_torch.kernels import extend_step as _es
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import popcount_reduce as _pc
 from repro_torch.kernels import ref as kref
 
@@ -104,16 +105,26 @@ def csr_arc_sweep(seg_start, seg_len, indices, arc_row, masks, deg_cap: int) -> 
     return kref.csr_arc_sweep_ref(seg_start, seg_len, indices, arc_row, masks, deg_cap=deg_cap)
 
 
+def flash_attention(q, k, v, block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """K9: causal attention over ``[BH, S, d]`` q and ``[BH, S_kv, d]`` k / v,
+    in q's dtype (see `repro_torch.kernels.flash_attention`)."""
+    if _on_card(q):
+        return _fa.flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k)
+    return kref.flash_attention_ref(q, k, v)
+
+
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
     return {"extend_step": _es.launches, "candidate_mask": _cm.launches,
-            "popcount_rows": _pc.launches, **_ac.launches, **_ce.launches}
+            "popcount_rows": _pc.launches, **_ac.launches, **_ce.launches,
+            "flash_attention": _fa.launches}
 
 
 def reset_launch_counts() -> None:
     _es.launches = 0
     _cm.launches = 0
     _pc.launches = 0
+    _fa.launches = 0
     for counts in (_ac.launches, _ce.launches):
         for name in counts:
             counts[name] = 0

@@ -4,7 +4,8 @@ they share.
 Each function computes exactly what its kernel computes
 (`repro_torch.kernels.candidate_mask`, `repro_torch.kernels.extend_step`,
 `repro_torch.kernels.popcount_reduce`, `repro_torch.kernels.domain_ac`,
-`repro_torch.kernels.csr_extend`) and mirrors ``repro.kernels.ref``.  The kernel wrappers run these on CPU
+`repro_torch.kernels.csr_extend`, `repro_torch.kernels.flash_attention`)
+and mirrors ``repro.kernels.ref``.  The kernel wrappers run these on CPU
 tensors; the tests hold them against the JAX package's oracles, and
 ``chip_smoke.py`` holds the CUDA kernels against them on the card.
 
@@ -367,3 +368,19 @@ def pack_bits_ref(flags: torch.Tensor, w: int) -> torch.Tensor:
         WORD_BITS, device=flags.device)
     words = (padded.reshape(flags.shape[:-1] + (w, WORD_BITS)) * weights).sum(dim=-1)
     return torch.where(words >= 1 << 31, words - (1 << 32), words).to(torch.int32)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Dense causal attention, the plain version of K9.
+
+    ``q`` ``[BH, S, d]``, ``k`` / ``v`` ``[BH, S_kv, d]``; scores in fp32,
+    query ``i`` sees keys ``j <= i`` (both counted from 0, also when
+    ``S != S_kv``); returns ``[BH, S, d]`` in the dtype of ``q``.
+    """
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / (q.shape[-1] ** 0.5)
+    n_q, n_k = s.shape[-2:]
+    mask = (torch.arange(n_q, device=q.device)[:, None]
+            >= torch.arange(n_k, device=q.device)[None, :])
+    s = torch.where(mask, s, torch.tensor(-1e30, dtype=s.dtype, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)

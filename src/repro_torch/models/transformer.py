@@ -1,0 +1,318 @@
+"""Decoder-only LM transformer, dense: GQA + RoPE + a dense FFN (a port of
+the serving half of ``repro.models.transformer``).
+
+Entry points:
+  * ``init_params(cfg, seed, device)``                → parameter dict
+  * ``params_from_numpy(tree, device, dtype)``        → parameter dict
+  * ``empty_cache(cfg, batch, max_len, device)``      → zero KV cache
+  * ``forward(params, cfg, tokens)``                  → final hidden states
+  * ``prefill(params, cfg, tokens, max_len)``         → (last-pos logits, KV cache)
+  * ``decode_step(params, cfg, cache, tokens, pos)``  → (logits, cache)
+
+Parameters are a dict in ``repro``'s tree layout: ``embed`` [V, d],
+``layers`` (``g1``, ``g2``, ``wq`` [L, d, H, dh], ``wk`` / ``wv`` [L, d, KH,
+dh], ``wo`` [L, H, dh, d], ``w_up``, ``w_down`` and, for ``swiglu``,
+``w_gate``; the layer axis first), ``final_norm`` and ``lm_head`` [d, V].
+``repro`` scans the layers with ``lax.scan``; here a Python loop walks
+them.  Its sharding hints (``constraint``, ``_gather_w``) have no meaning on
+one card and are dropped, as are its remat policy and the training
+entry points (``loss_fn``, ``lm_loss``).
+
+The prefill's self-attention (a zero cache, ``cache_len == 0``, more than
+one token, no window) is causal attention over the prompt's own K/V, which
+is what K9 computes: it goes through ``ops.flash_attention`` on ``[B·H, S,
+dh]`` with K/V expanded to H heads.  A decode step (one token) goes
+through the plain grouped `repro_torch.models.attention.decode_attention`,
+as in ``repro``.  The KV cache is updated in place: ``prefill`` fills a new
+cache, ``decode_step`` writes its token into the cache it is given and
+returns that same cache (``repro`` returns a new one).
+
+Constructors take the card unless given ``device``; ``prefill`` and
+``decode_step`` run where the parameters are.  MoE layers and windowed
+attention are not ported yet (ROADMAP Queue 1 item 14) and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.engine import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models.attention import apply_rope, blockwise_attention, windowed_attention
+from repro_torch.models.common import ACTIVATIONS, dot, init_param, rms_norm
+
+Cache = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    """``repro``'s LMConfig without its training fields (``loss_chunk``,
+    ``remat``, ``aux_loss_weight``); ``dtype`` is a torch dtype."""
+
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    activation: str = "swiglu"  # swiglu | gelu | squared_relu | silu | relu
+    moe: Optional[Any] = None  # not ported: a config with one raises
+    rope_theta: float = 10000.0
+    max_seq_len: int = 32768
+    attn_window: int = 0  # > 0: sliding-window attention, not ported
+    dtype: torch.dtype = torch.bfloat16
+    kv_block: int = 1024
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    @property
+    def gated(self) -> bool:
+        return self.activation == "swiglu"
+
+    def param_count(self) -> int:
+        """Total parameters, as ``repro`` counts them (dense only)."""
+        _dense_only(self)
+        d, h, kh, dh = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
+        attn = d * h * dh + 2 * d * kh * dh + h * dh * d
+        ffn = (3 if self.gated else 2) * d * self.d_ff
+        per_layer = attn + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab_size * d + d
+
+
+def _dense_only(cfg: LMConfig) -> None:
+    if cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet: ROADMAP Queue 1 item 14")
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
+    """``(shape, init, scale)`` per parameter, in the parameter tree's layout
+    (``scale`` None: ``1/√fan_in``)."""
+    _dense_only(cfg)
+    d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    n, v, f = cfg.n_layers, cfg.vocab_size, cfg.d_ff
+    layers = {
+        "g1": ((n, d), "ones", None),
+        "g2": ((n, d), "ones", None),
+        "wq": ((n, d, h, dh), "normal", None),
+        "wk": ((n, d, kh, dh), "normal", None),
+        "wv": ((n, d, kh, dh), "normal", None),
+        "wo": ((n, h, dh, d), "normal", None),
+    }
+    if cfg.gated:
+        layers["w_gate"] = ((n, d, f), "normal", None)
+    layers["w_up"] = ((n, d, f), "normal", None)
+    layers["w_down"] = ((n, f, d), "normal", None)
+    return {
+        "embed": ((v, d), "normal", 1.0),
+        "layers": layers,
+        "final_norm": ((d,), "ones", None),
+        "lm_head": ((d, v), "normal", None),
+    }
+
+
+def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
+    ``device`` (the card by default).  Same distributions as ``repro``'s
+    ``init_params``; not the same numbers."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def make(spec):
+        shape, init, scale = spec
+        return init_param(shape, init, cfg.dtype, gen, device, scale)
+
+    shapes = param_shapes(cfg)
+    return {name: ({k: make(s) for k, s in spec.items()} if name == "layers" else make(spec))
+            for name, spec in shapes.items()}
+
+
+def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
+    """A parameter tree of numpy arrays (``repro``'s parameters after
+    ``jax.tree.map(np.asarray, params)``) as tensors on ``device`` (the
+    card by default), in ``dtype`` or each array's own.  bfloat16 arrays go
+    through fp32, which is exact both ways."""
+    device = resolve_device(device)
+
+    def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(x) for k, x in a.items()}
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            t = torch.tensor(a)
+        return t.to(device=device, dtype=dtype or t.dtype)
+
+    return conv(tree)
+
+
+def empty_cache(cfg: LMConfig, batch: int, max_len: Optional[int] = None,
+                device=None) -> Cache:
+    """A zero KV cache ``(k, v)``, each [L, B, S_max, KH, dh] in
+    ``cfg.dtype``, on ``device`` (the card by default)."""
+    device = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len or cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=cfg.dtype, device=device),
+            torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def layer_params(params, i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s slice of the stacked layer parameters (views)."""
+    return {k: w[i] for k, w in params["layers"].items()}
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _ffn_dense(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LMConfig) -> torch.Tensor:
+    if cfg.gated:
+        gate = dot(x, lp["w_gate"])
+        up = dot(x, lp["w_up"])
+        hidden = F.silu(gate.float()).to(x.dtype) * up
+    else:
+        hidden = ACTIVATIONS[cfg.activation](dot(x, lp["w_up"]).float()).to(x.dtype)
+    return dot(hidden, lp["w_down"])
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Causal self-attention of [B, S, H, dh] q over [B, S, KH, dh] k / v
+    through K9: K/V expanded to H heads, heads folded into the batch."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+
+    def fold(x):
+        return x.transpose(1, 2).reshape(b * h, s, dh).contiguous()
+
+    out = ops.flash_attention(fold(q), fold(k), fold(v))
+    return out.reshape(b, h, s, dh).transpose(1, 2)
+
+
+def _attention(
+    x: torch.Tensor,
+    lp: Dict[str, torch.Tensor],
+    cfg: LMConfig,
+    positions: torch.Tensor,
+    cache_kv: Optional[Cache] = None,
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """GQA attention.  With ``cache_kv`` ([B, S_max, KH, dh] each) given,
+    writes this call's K/V at ``cache_len`` (in place) and attends over the
+    cache; a write past ``S_max`` raises (``repro`` clamps its start)."""
+    q = torch.einsum("bsd,dhk->bshk", x, lp["wq"])
+    k = torch.einsum("bsd,dhk->bshk", x, lp["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, lp["wv"])
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    s = q.shape[1]
+
+    new_cache = None
+    if cache_kv is not None:
+        ck, cv = cache_kv
+        start = int(cache_len)
+        if not 0 <= start <= ck.shape[1] - s:
+            raise ValueError(f"cache of {ck.shape[1]} positions cannot take {s} at {start}")
+        ck[:, start:start + s] = k.to(ck.dtype)
+        cv[:, start:start + s] = v.to(cv.dtype)
+        new_cache = (ck, cv)
+        if start == 0 and s > 1 and not cfg.attn_window:
+            out = _flash(q, ck[:, :s], cv[:, :s])
+        else:
+            out = blockwise_attention(q, ck, cv, q_offset=start, kv_valid_len=start + s,
+                                      kv_block=cfg.kv_block)
+    elif cfg.attn_window and s > 1:
+        out = windowed_attention(q, k, v, window=cfg.attn_window,
+                                 q_chunk=min(cfg.kv_block, s))
+    else:
+        out = blockwise_attention(q, k, v, kv_block=cfg.kv_block)
+    return torch.einsum("bshk,hkd->bsd", out, lp["wo"]), new_cache
+
+
+def _layer(cfg: LMConfig, h: torch.Tensor, lp: Dict[str, torch.Tensor],
+           positions: torch.Tensor, layer_cache: Optional[Cache] = None,
+           cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """One pre-norm block: ``h + attn(norm(h))``, then ``+ ffn(norm(h))``.
+    Returns the new hidden state and the layer's cache."""
+    _dense_only(cfg)
+    a, new_cache = _attention(rms_norm(h, lp["g1"]), lp, cfg, positions, layer_cache, cache_len)
+    h = h + a
+    h = h + _ffn_dense(rms_norm(h, lp["g2"]), lp, cfg)
+    return h, new_cache
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _embed(params, cfg: LMConfig, tokens) -> torch.Tensor:
+    tokens = torch.as_tensor(tokens, device=params["embed"].device).long()
+    return params["embed"][tokens].to(cfg.dtype)
+
+
+def _logits(params, h: torch.Tensor) -> torch.Tensor:
+    """Last-position logits in fp32, [B, V]."""
+    h = rms_norm(h, params["final_norm"])
+    return h[:, -1].float() @ params["lm_head"].float()
+
+
+def forward(params, cfg: LMConfig, tokens, positions: Optional[torch.Tensor] = None):
+    """Token ids [B, S] -> (final normed hidden states [B, S, d], aux loss 0)."""
+    h = _embed(params, cfg, tokens)
+    b, s = h.shape[:2]
+    if positions is None:
+        positions = torch.arange(s, device=h.device).expand(b, s)
+    for i in range(cfg.n_layers):
+        h, _ = _layer(cfg, h, layer_params(params, i), positions)
+    return rms_norm(h, params["final_norm"]), torch.zeros((), device=h.device)
+
+
+def prefill(params, cfg: LMConfig, tokens, max_len: Optional[int] = None):
+    """Full-sequence forward that also fills a new KV cache.
+
+    Returns (last-position logits [B, V] fp32, cache (k, v) each
+    [L, B, S_max, KH, dh])."""
+    h = _embed(params, cfg, tokens)
+    b, s = h.shape[:2]
+    cache = empty_cache(cfg, b, max_len, device=h.device)
+    positions = torch.arange(s, device=h.device).expand(b, s)
+    for i in range(cfg.n_layers):
+        h, _ = _layer(cfg, h, layer_params(params, i), positions, (cache[0][i], cache[1][i]), 0)
+    return _logits(params, h), cache
+
+
+def decode_step(params, cfg: LMConfig, cache: Cache, tokens, cache_len: int):
+    """One incremental decode step.
+
+    Args:
+      cache: (k, v) each [L, B, S_max, KH, dh]; written in place.
+      tokens: [B, 1] current token ids.
+      cache_len: number of valid cache positions (the token's position).
+
+    Returns: (logits [B, V] fp32, the same cache).
+    """
+    h = _embed(params, cfg, tokens)
+    b, s = h.shape[:2]
+    cache_len = int(cache_len)
+    positions = torch.full((b, s), cache_len, device=h.device)
+    for i in range(cfg.n_layers):
+        h, _ = _layer(cfg, h, layer_params(params, i), positions, (cache[0][i], cache[1][i]),
+                      cache_len)
+    return _logits(params, h), cache
