@@ -136,10 +136,32 @@ K9_EDGES = [(4, 1, 1, 64, "random"), (3, 9, 9, 16, "random"), (2, 200, 200, 80, 
             (2, 1000, 1000, 128, "random"), (2, 200, 37, 64, "random"),
             (2, 37, 200, 64, "random"), (2, 1, 1000, 16, "random"),
             (2, 1000, 1000, 128, "equal"), (1, 130, 130, 256, "random")]
+# K9 cases at the bf16 route's boundaries (checked in fp32 too): head widths
+# 24 and 100 (not a multiple of 64; 100 is padded to 104 by the wrapper) and
+# 160 (a 64-column box wholly past the width, zero-filled by TMA); one row
+# past a 128-row query tile (S 4,097 and 129); a KV tile cut short (S_kv 127
+# < S 300); d 256 with S 300 (64-key tiles)
+K9_TC_EDGES = [(2, 300, 300, 24, "random"), (2, 300, 300, 100, "random"),
+               (2, 300, 300, 160, "random"), (1, 4097, 4097, 128, "random"),
+               (2, 129, 129, 128, "random"), (2, 300, 127, 128, "random"),
+               (2, 300, 300, 256, "random")]
 
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def tensor_core_instructions(name: str) -> dict:
+    """Tensor-core instructions in the SASS of kernel ``name``'s library
+    (``cuobjdump -sass``): ``HGMMA`` (wgmma) and ``HMMA`` (mma.sync) lines."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return dict(cuobjdump="not found")
+    sass = subprocess.run([str(tool), "-sass", str(_build.library_path(name))],
+                          capture_output=True, text=True, check=True).stdout.splitlines()
+    return {op: sum(f" {op}." in ln or f" {op} " in ln for ln in sass) for op in ("HGMMA", "HMMA")}
 
 
 def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -1285,7 +1307,7 @@ def check_flash_edges(device) -> list:
 
     rng = np.random.default_rng(16)
     cases = []
-    for bh, s, s_kv, d, kind in K9_EDGES:
+    for bh, s, s_kv, d, kind in K9_EDGES + K9_TC_EDGES:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             q, k, v = (torch.from_numpy(rng.normal(size=(bh, n, d)).astype(np.float32))
                        .to(device=device, dtype=dtype) for n in (s, s_kv, s_kv))
@@ -1301,7 +1323,9 @@ def check_flash_edges(device) -> list:
 def k9_timing(q, k, v) -> dict:
     """K9, its plain version and ``scaled_dot_product_attention`` (the
     yardstick, never called by the port) on one layer's q/k/v, with the
-    work counted for the bound: QKᵀ and PV over the causal triangle."""
+    work counted for the bound: QKᵀ and PV over the causal triangle.  K9 is
+    timed on its bf16 route (``ms``, the served dtype) and on its fp32 route
+    (``fp32_ms``, the same values in fp32), each beside its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -1311,13 +1335,18 @@ def k9_timing(q, k, v) -> dict:
     bh, s, d = q.shape
     s_kv = k.shape[1]
     pairs = sum(min(i + 1, s_kv) for i in range(s))  # (query, key) pairs with key <= query
+    ops = 4 * bh * d * pairs
+    rate = TENSOR_BF16_PER_S if q.dtype == torch.bfloat16 else LANE_OPS_PER_S
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    fp32_ms = cuda_ms(lambda: fa.flash_attention_cuda(q32, k32, v32), reps=5, warmup=1)
+    del q32, k32, v32
     return dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=10),
                 plain_ms=cuda_ms(lambda: kref.flash_attention_ref(q, k, v), reps=3, warmup=1),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=True)),
                 bytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
-                ops=4 * bh * d * pairs,
-                ops_per_s=TENSOR_BF16_PER_S if q.dtype == torch.bfloat16 else LANE_OPS_PER_S,
+                ops=ops, ops_per_s=rate, ops_bound_ms=ops / rate * 1e3,
+                fp32_ms=fp32_ms, fp32_bound_ms=ops / LANE_OPS_PER_S * 1e3,
                 shape=[bh, s, s_kv, d], dtype=str(q.dtype))
 
 
@@ -1553,10 +1582,15 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = _build.build()
     ptxas = {k: [ln.strip() for ln in _build.build_log(k).splitlines()
-                 if "registers" in ln or "spill" in ln] for k in _build.KERNELS}
+                 if "registers" in ln or "spill" in ln or "Potential Performance Loss" in ln]
+             for k in _build.KERNELS}
+    k9_sass = tensor_core_instructions("flash_attention")
     emit(dict(phase="environment", nvidia_smi=smi, device=torch.cuda.get_device_name(0),
               torch=torch.__version__, cuda=torch.version.cuda,
-              build_s=build_s, build_wall_s=time.perf_counter() - t0, ptxas=ptxas))
+              build_s=build_s, build_wall_s=time.perf_counter() - t0, ptxas=ptxas,
+              flash_attention_sass=k9_sass))
+    if k9_sass.get("HGMMA") == 0:
+        raise AssertionError(f"K9's bf16 route has no wgmma (HGMMA) in its SASS: {k9_sass}")
 
     checks, timing = check_kernels(device)
     checks += check_domain_kernels_edges(device)
@@ -1633,7 +1667,7 @@ def main() -> int:
         t_ops = t["ops"] / t.get("ops_per_s", LANE_OPS_PER_S) * 1e3
         cases = [c for c in checks if f"{name}_err" in c]
         extra = {k: v for k, v in t.items()
-                 if k.startswith(("bound_", "bytes_", "target_b_", "entries_"))}
+                 if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_"))}
         kernels.append(dict(
             name=name, route="cuda", source=m["source"], replaces=m["replaces"],
             launches=m["launches"], max_abs_err=max(c[f"{name}_err"] for c in cases),
