@@ -8,8 +8,11 @@ Phases, each printed as one JSON line:
    ``sm_90a``, one process per source, all started together);
 2. kernels — each CUDA kernel held against its plain PyTorch version on the
    card, at the main path's shapes and at ragged ones (0 mismatched words
-   required), and timed with CUDA events beside the plain version and the
-   least time the card could take for the same work;
+   required; K5 in its one-arc and its batched form, the latter also with
+   pairs on planes out of range, more pairs than one mask chunk, and
+   all-zero and all-ones masks and rows), and timed with CUDA events beside
+   the plain version and the least time the card could take for the same
+   work;
 3. main path — the paper's largest PPIS32-size target (12,575 nodes) and
    its six patterns through ``SubgraphIndex.build`` → ``Enumerator.prepare``
    → ``Enumerator.run`` with the fused kernel (``step_backend="pallas"``),
@@ -22,8 +25,10 @@ Phases, each printed as one JSON line:
 4. batch path — the same target with 24 patterns (8 each of 8, 16 and 24
    edges), under ``ri-ds-si-fc`` and ``ri-ds-si-acfc``:
    ``Enumerator.prepare_batch`` with the device fixpoint through K5
-   (``adjacency_any``) and K3 (``popcount_rows``), through plain PyTorch,
-   and on the host (numpy), which must give identical domains and plans;
+   (``adjacency_any``, one launch per AC sweep over every live (pattern,
+   arc) pair of a domain bucket: the launches must equal the fixpoint's
+   sweeps) and K3 (``popcount_rows``), through plain PyTorch, and on the
+   host (numpy), which must give identical domains and plans;
    ``compute_domains_device(use_pallas=True)`` per pattern through K4
    (``arc_any_sweep``) and K3, which must give the same bits; and
    ``Enumerator.stream`` in packs of 4 through K1 and through K2, whose
@@ -32,7 +37,8 @@ Phases, each printed as one JSON line:
    preparation time (device and numpy), each pack's time, kernel launches
    per fixpoint sweep, and the card's busy share of one profiled pack.
    Then K3, K5 and K4 are checked and timed at full width on the target's
-   own adjacency planes with one 48-arc pattern's real domain masks;
+   own adjacency planes with one 48-arc pattern's real domain masks, and
+   batched K5 also on the largest sweep the batch fixpoint launched;
 5. sparse path — target A, PDBSv1 scale (33,067 nodes, 138 labels, w =
    1,034; six patterns of 5, 9 and 13 nodes), indexed CSR-only
    (``SubgraphIndex.build(sparse=True)``) under ``ri-ds-si-acfc`` and
@@ -322,10 +328,11 @@ def check_kernels(device):
 DOMAIN_KERNELS = ("popcount_rows", "adjacency_any", "arc_any_sweep")
 
 
-def domain_kernel_case(adj, arc_row, masks) -> dict:
+def domain_kernel_case(adj, arc_row, masks, pair_plane=None) -> dict:
     """K3, K5 and K4 against their plain versions on one set of inputs:
     K3 on the rows of plane ``arc_row[0]``, K5 on that plane with
-    ``masks[0]``, K4 on every arc.  Returns mismatched words and the
+    ``masks[0]`` and batched over every arc (on ``pair_plane``, default
+    ``arc_row``), K4 on every arc.  Returns mismatched words and the
     largest error per kernel."""
     import torch
 
@@ -333,11 +340,14 @@ def domain_kernel_case(adj, arc_row, masks) -> dict:
     from repro_torch.kernels import ref as kref
 
     plane = adj[int(arc_row[0])]
+    pair_plane = arc_row if pair_plane is None else pair_plane
     pairs = {
         "popcount_rows": (popcount_reduce.popcount_rows_cuda(plane),
                           kref.popcount_rows_ref(plane)),
         "adjacency_any": (domain_ac.adjacency_any_cuda(plane, masks[0]),
                           kref.adjacency_any_ref(plane, masks[0])),
+        "adjacency_any_pairs": (domain_ac.adjacency_any_pairs_cuda(adj, pair_plane, masks),
+                                kref.adjacency_any_pairs_ref(adj, pair_plane, masks)),
         "arc_any_sweep": (domain_ac.arc_any_sweep_cuda(adj, arc_row, masks),
                           kref.arc_any_sweep_ref(adj, arc_row, masks)),
     }
@@ -350,9 +360,13 @@ def domain_kernel_case(adj, arc_row, masks) -> dict:
 
 
 def check_domain_kernels_edges(device) -> list:
-    """K3, K4 and K5 at edge shapes: w ∈ {1, 33, 257}, n_t not a multiple
-    of the 64-row tile, one arc, all-zero and all-ones masks, sparse rows
-    (so most rows read to their end) and dense ones."""
+    """K3, K4 and K5 at edge shapes: w ∈ {1, 33, 257, 393, 600, 12,288}
+    (rows of several load passes, up to ``MAX_W``), n_t not a multiple of
+    any row tile, one arc, all-zero and all-ones masks, sparse
+    rows (so most rows read to their end), dense ones and all-ones rows
+    (more nonzero words than a row's slots); batched K5 also with every
+    plane named, a pair on a plane out of range and, at w = 393, 300 pairs
+    on two planes (several mask chunks)."""
     import numpy as np
     import torch
 
@@ -364,17 +378,26 @@ def check_domain_kernels_edges(device) -> list:
     cases = []
     for n_planes, n_t, w, n_arcs, density in [(2, 1, 1, 1, 0.5), (2, 65, 1, 3, 0.5),
                                               (4, 100, 33, 1, 0.02), (2, 257, 33, 6, 0.5),
-                                              (6, 1000, 257, 9, 0.002), (2, 129, 257, 48, 0.01)]:
+                                              (6, 1000, 257, 9, 0.002), (2, 129, 257, 48, 0.01),
+                                              (3, 97, 393, 7, 0.002), (2, 300, 393, 300, 0.002),
+                                              (2, 70, 600, 5, 0.01), (1, 40, 12288, 2, 0.0005)]:
         bits = rng.random((n_planes, n_t, w * 32)) < density
         adj = np.packbits(bits, axis=-1, bitorder="little").view(np.uint32)
         arc_row = rng.integers(0, n_planes, n_arcs).astype(np.int32)
+        arc_row[: min(n_planes, n_arcs)] = np.arange(min(n_planes, n_arcs))
+        pair_plane = arc_row.copy()
+        if n_arcs > 1:
+            pair_plane[-1] = n_planes  # out of range
         masks = rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32)
         masks[0] &= rng.integers(0, 2**32, w, dtype=np.uint32)  # sparser first mask
         for fill in (None, 0, 0xFFFFFFFF):
             if fill is not None:
                 masks = np.full((n_arcs, w), fill, np.uint32)
-            cases.append(dict(domain_kernel_case(t(adj), t(arc_row), t(masks)),
-                              mask="random" if fill is None else hex(fill)))
+            for rows in ("random",) if fill is None else ("random", "ones", "zeros"):
+                a = adj if rows == "random" else np.full_like(adj, 0 if rows == "zeros" else
+                                                              0xFFFFFFFF)
+                cases.append(dict(domain_kernel_case(t(a), t(arc_row), t(masks), t(pair_plane)),
+                                  mask="random" if fill is None else hex(fill), rows=rows))
     return cases
 
 
@@ -534,19 +557,45 @@ def profile_pack(enum, queries) -> dict:
                      for e in top])
 
 
+def _largest_k5_sweep(fn):
+    """Run ``fn`` with ``ops.adjacency_any_pairs`` watched; returns its
+    result and the ``(plane, masks)`` of the K5 call with the most pairs
+    (the tensors the fixpoint made for that sweep, which it never changes
+    again)."""
+    from repro_torch.kernels import ops
+
+    biggest = {}
+    k5 = ops.adjacency_any_pairs
+
+    def watched(adj_flat, plane, masks):
+        if plane.shape[0] > biggest.get("plane", plane[:0]).shape[0]:
+            biggest.update(plane=plane, masks=masks)
+        return k5(adj_flat, plane, masks)
+
+    ops.adjacency_any_pairs = watched
+    try:
+        out = fn()
+    finally:
+        ops.adjacency_any_pairs = k5
+    return out, biggest
+
+
 def run_batch_path(device, collection=None):
     """Phase 4: ``prepare_batch`` (device fixpoint with K5 + K3, and plain)
     against the numpy preparation, the single-query sweep fixpoint (K4 +
     K3), and ``run_batch`` in packs through K1 and through K2, each pack
     lane against the same query's single run and ``ref_enumerate``.
-    Returns the launch counts of the runs that use each kernel, and the
-    inputs of the full-width domain-kernel check."""
+    ``prepare_batch`` must launch K5 once per AC sweep of each domain
+    bucket's fixpoint.  Returns the launch counts of the runs that use each
+    kernel, and the inputs of the full-width domain-kernel check (with the
+    largest K5 sweep)."""
     import numpy as np
 
     from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
     from repro_torch.core import domains as dom
     from repro_torch.core.plan import variant_flags
     from repro_torch.core.ref import ref_enumerate
+    from repro_torch.core.session import snap_arc_pad, snap_loop_pad, snap_p_pad
     from repro_torch.data import graphgen
 
     t0 = time.perf_counter()
@@ -556,30 +605,40 @@ def run_batch_path(device, collection=None):
     patterns = [i.pattern for i in insts]
     names = [i.name for i in insts]
     index = SubgraphIndex.build(target)
-    buckets = {}
+    buckets, fixpoints = {}, set()  # pattern shapes; prepare_batch's groups
     for p in patterns:
         n_p, n_a, n_l = dom.domain_bucket(p)
         key = f"p{n_p}/arcs{n_a}/loops{n_l}"
         buckets[key] = buckets.get(key, 0) + 1
+        fixpoints.add((snap_p_pad(n_p), snap_arc_pad(n_a), snap_loop_pad(n_l)))
     emit(dict(phase="batch_path_setup", n_t=target.n, w=index.w, patterns=len(patterns),
-              pattern_shapes=buckets, setup_s=time.perf_counter() - t0))
+              pattern_shapes=buckets, prepare_batch_buckets=sorted(fixpoints),
+              setup_s=time.perf_counter() - t0))
 
     def session(variant, **kw):
         return Enumerator(index, config=EngineConfig(**ENGINE_KW, **kw), variant=variant,
                           device=device)
 
     launches = {"prepare_batch": {}, "sweep": {}, "run_batch_pallas": {}, "run_batch_jnp": {}}
-    full_width = None
+    full_width, largest = None, {}
     for variant in BATCH_VARIANTS:
         kern = session(variant, step_backend="pallas", use_pallas=True)  # K5 + K3, K1
         plain = session(variant, step_backend="pallas")  # plain fixpoint
         k2 = session(variant, step_backend="jnp", use_pallas=True)  # K2
         kern.prepare_batch(patterns[:PACK_SIZE])  # warm-up: first use of each op
 
-        qs, prep_counts = _launched(lambda: kern.prepare_batch(patterns, names=names))
+        dom.reset_sweep_count()
+        (qs, prep_counts), sweep_in = _largest_k5_sweep(
+            lambda: _launched(lambda: kern.prepare_batch(patterns, names=names)))
+        ac_sweeps = dom.ac_sweeps
         _add(launches["prepare_batch"], prep_counts)
         if not (prep_counts["adjacency_any"] and prep_counts["popcount_rows"]):
             raise AssertionError(f"{variant}: prepare_batch(use_pallas) launched {prep_counts}")
+        if prep_counts["adjacency_any"] != ac_sweeps:
+            raise AssertionError(f"{variant}: prepare_batch launched K5 "
+                                 f"{prep_counts['adjacency_any']} times in {ac_sweeps} AC sweeps")
+        if sweep_in["plane"].shape[0] > largest.get("plane", sweep_in["plane"][:0]).shape[0]:
+            largest = dict(sweep_in, variant=variant)
         qs_plain, counts_plain = _launched(lambda: plain.prepare_batch(patterns, names=names))
         if any(counts_plain.values()):
             raise AssertionError(f"{variant}: the plain fixpoint launched {counts_plain}")
@@ -642,6 +701,9 @@ def run_batch_path(device, collection=None):
             prepare_s=[dict(name=q.name, device_s=q.prepare_s, numpy_s=c.prepare_s)
                        for q, c in zip(qs, qs_np)],
             prepare_batch_launches=prep_counts, sweep_launches=sweep_counts,
+            prepare_batch_k5=dict(launches=prep_counts["adjacency_any"], ac_sweeps=ac_sweeps,
+                                  buckets=len(fixpoints),
+                                  largest_sweep_pairs=int(sweep_in["plane"].shape[0])),
             k5_launches_per_sweep=(prep_counts["adjacency_any"]
                                    / max(sweep_counts["arc_any_sweep"], 1)),
             k3_launches_per_sweep_sweep_route=(sweep_counts["popcount_rows"]
@@ -663,6 +725,7 @@ def run_batch_path(device, collection=None):
                               arc_row=(np.clip(arrs.arc_lab, 0, index.n_edge_labels - 1) * 2
                                        + arrs.arc_dir).astype(np.int32),
                               masks=np.ascontiguousarray(bits[arrs.arc_q]))
+    full_width["largest_sweep"] = largest
     return launches, full_width
 
 
@@ -680,11 +743,49 @@ def needed_words(plane, masks) -> "torch.Tensor":
     return torch.stack(out)
 
 
+def needed_tests(plane, need) -> int:
+    """The (mask, word) tests a support test needs: per mask and row, the
+    row's nonzero words among the first ``need`` (a zero word cannot hit)."""
+    import torch
+
+    nonzero = (plane != 0).to(torch.int32).cumsum(dim=1)  # [n_t, w]
+    return int(nonzero.gather(1, (need - 1).T.long()).sum())
+
+
+def pair_sweep_work(adj, plane, masks) -> dict:
+    """What one K4 / batched-K5 launch must do for these inputs: each named
+    plane read once, as far as the furthest-reading pair on it needs
+    (``words``; ``planes`` whole planes for a full read), the masks, the
+    plane ids and the flags; an AND and a test per needed (pair, nonzero
+    word)."""
+    n_planes, n_t, w = adj.shape
+    n_pairs = masks.shape[0]
+    rows = plane.tolist()
+    on = sorted({r for r in rows if 0 <= r < n_planes})
+    words = ops = 0
+    for r in on:
+        need = needed_words(adj[r], masks[[i for i, q in enumerate(rows) if q == r]])
+        words += int(need.max(dim=0).values.sum())
+        ops += 2 * needed_tests(adj[r], need)
+    io = n_pairs * (w + 1) + n_pairs * n_t
+    return dict(bytes=words_bytes(words + io), bytes_full=words_bytes(len(on) * n_t * w + io),
+                bytes_plane_per_arc=words_bytes(n_pairs * n_t * w + io), ops=ops, planes=len(on))
+
+
+def ptxas_lines(name: str) -> list:
+    """ptxas' register and spill lines for kernel ``name``'s library."""
+    from repro_torch.kernels import _build
+
+    return [ln.strip() for ln in _build.build_log(name).splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
 def check_domain_kernels_full(device, fw) -> tuple:
     """K3, K5 and K4 at the batch path's width on the target's own
     adjacency planes and one pattern's real domain masks (from the phase-4
-    fixpoint): 0 mismatched words, timed as K1 and K2 are, with their
-    bounds for this data and for a full read."""
+    fixpoint), and batched K5 also on the largest sweep of the batch
+    fixpoint (its main-path shape): 0 mismatched words, timed as K1 and K2
+    are, with their bounds for this data and for a full read."""
     import torch
 
     from repro_torch.kernels import domain_ac, popcount_reduce
@@ -693,41 +794,56 @@ def check_domain_kernels_full(device, fw) -> tuple:
     adj = fw["adj_flat"]
     arc_row = torch.from_numpy(fw["arc_row"]).to(device)
     masks = torch.from_numpy(fw["masks"].view("int32")).to(device)
+    big = fw["largest_sweep"]
     case = dict(domain_kernel_case(adj, arc_row, masks), pattern=fw["name"])
+    k5 = domain_ac.adjacency_any_pairs_cuda(adj, big["plane"], big["masks"])
+    k5_plain = kref.adjacency_any_pairs_ref(adj, big["plane"], big["masks"])
+    torch.cuda.synchronize()
+    case.update(largest_sweep_pairs=int(big["plane"].shape[0]),
+                adjacency_any_pairs_sweep_mismatches=int((k5 != k5_plain).sum()),
+                adjacency_any_pairs_sweep_err=max_abs_err(k5, k5_plain))
     n_planes, n_t, w = adj.shape
-    n_arcs = masks.shape[0]
     plane0 = adj[int(fw["arc_row"][0])]
-    # data-dependent reads: K5 what its one arc needs; K4 each named plane
-    # once, as far as the furthest-reading arc on it needs
-    k5_words = int(needed_words(plane0, masks[:1]).sum())
-    k4_words = 0
-    for r in sorted(set(fw["arc_row"].tolist())):
-        on = [a for a in range(n_arcs) if int(fw["arc_row"][a]) == r]
-        k4_words += int(needed_words(adj[r], masks[on]).max(dim=0).values.sum())
-    planes = len(set(fw["arc_row"].tolist()))
+    # data-dependent reads: one-arc K5 what its arc needs; K4 and batched K5
+    # each named plane once, as far as the furthest-reading pair on it needs
+    k5_one_need = needed_words(plane0, masks[:1])
+    k5_one_words = int(k5_one_need.sum())
+    k4 = pair_sweep_work(adj, arc_row, masks)
+    sweep = pair_sweep_work(adj, big["plane"], big["masks"])
+    hbm_ms = 1e3 / HBM_BYTES_PER_S
     timing = {
         "popcount_rows": dict(
             ms=cuda_ms(lambda: popcount_reduce.popcount_rows_cuda(plane0)),
             plain_ms=cuda_ms(lambda: kref.popcount_rows_ref(plane0)),
             bytes=words_bytes(n_t * w + n_t), bytes_full=words_bytes(n_t * w + n_t),
             ops=2 * n_t * w),
-        "adjacency_any": dict(
-            ms=cuda_ms(lambda: domain_ac.adjacency_any_cuda(plane0, masks[0])),
-            plain_ms=cuda_ms(lambda: kref.adjacency_any_ref(plane0, masks[0])),
-            bytes=words_bytes(k5_words + w + n_t), bytes_full=words_bytes(n_t * w + w + n_t),
-            ops=2 * k5_words),
+        "adjacency_any": dict(  # the main path's form: one launch per sweep
+            ms=cuda_ms(lambda: domain_ac.adjacency_any_pairs_cuda(adj, big["plane"],
+                                                                  big["masks"])),
+            plain_ms=cuda_ms(lambda: kref.adjacency_any_pairs_ref(adj, big["plane"],
+                                                                 big["masks"]), reps=5),
+            pairs=int(big["plane"].shape[0]), planes=sweep["planes"],
+            bytes=sweep["bytes"], bytes_full=sweep["bytes_full"], ops=sweep["ops"],
+            k4_inputs_ms=cuda_ms(lambda: domain_ac.adjacency_any_pairs_cuda(adj, arc_row, masks)),
+            k4_inputs_bound_ms=k4["bytes"] * hbm_ms,
+            k4_inputs_bound_full_ms=k4["bytes_full"] * hbm_ms,
+            one_pair_ms=cuda_ms(lambda: domain_ac.adjacency_any_cuda(plane0, masks[0])),
+            one_pair_plain_ms=cuda_ms(lambda: kref.adjacency_any_ref(plane0, masks[0])),
+            one_pair_bound_ms=max(words_bytes(k5_one_words + w + n_t) * hbm_ms,
+                                  2 * needed_tests(plane0, k5_one_need) / LANE_OPS_PER_S * 1e3),
+            one_pair_bound_full_ms=words_bytes(n_t * w + w + n_t) * hbm_ms,
+            ptxas=ptxas_lines("adjacency_any")),
         "arc_any_sweep": dict(
             ms=cuda_ms(lambda: domain_ac.arc_any_sweep_cuda(adj, arc_row, masks)),
             plain_ms=cuda_ms(lambda: kref.arc_any_sweep_ref(adj, arc_row, masks)),
-            bytes=words_bytes(k4_words + n_arcs * (w + 1) + n_arcs * n_t),
-            bytes_full=words_bytes(planes * n_t * w + n_arcs * (w + 1) + n_arcs * n_t),
-            bytes_plane_per_arc=words_bytes(n_arcs * n_t * w + n_arcs * (w + 1) + n_arcs * n_t),
-            ops=2 * k4_words),
+            bytes=k4["bytes"], bytes_full=k4["bytes_full"],
+            bytes_plane_per_arc=k4["bytes_plane_per_arc"], ops=k4["ops"],
+            ptxas=ptxas_lines("arc_any_sweep")),
     }
     for name, t in timing.items():
-        t["bound_full_ms"] = t["bytes_full"] / HBM_BYTES_PER_S * 1e3
+        t["bound_full_ms"] = t["bytes_full"] * hbm_ms
     timing["arc_any_sweep"]["bound_plane_per_arc_ms"] = (
-        timing["arc_any_sweep"]["bytes_plane_per_arc"] / HBM_BYTES_PER_S * 1e3)
+        timing["arc_any_sweep"]["bytes_plane_per_arc"] * hbm_ms)
     return case, timing
 
 
@@ -1641,9 +1757,11 @@ def main() -> int:
                               replaces="src/repro/kernels/popcount_reduce.py:31",
                               launches=batch_launches["prepare_batch"]["popcount_rows"]),
         "adjacency_any": dict(source="src/repro_torch/csrc/adjacency_any.cu",
+                              header="src/repro_torch/csrc/arc_any.cuh",
                               replaces="src/repro/kernels/domain_ac.py:58",
                               launches=batch_launches["prepare_batch"]["adjacency_any"]),
         "arc_any_sweep": dict(source="src/repro_torch/csrc/arc_any_sweep.cu",
+                              header="src/repro_torch/csrc/arc_any.cuh",
                               replaces="src/repro/kernels/domain_ac.py:92",
                               launches=batch_launches["sweep"]["arc_any_sweep"]),
         "csr_extend": dict(source="src/repro_torch/csrc/csr_extend.cu",
@@ -1660,18 +1778,26 @@ def main() -> int:
                                 launches=lm_launches["prefill"]["flash_attention"]
                                 + lm_launches["decode"]["flash_attention"]),
     }
+
+    def own(name, key, suffix):  # K5's cases include its batched form's
+        return key == name + suffix or (key.startswith(name + "_pairs") and key.endswith(suffix))
+
     kernels = []
     for name, m in meta.items():
         t = timing[name]
         t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = t["ops"] / t.get("ops_per_s", LANE_OPS_PER_S) * 1e3
-        cases = [c for c in checks if f"{name}_err" in c]
         extra = {k: v for k, v in t.items()
-                 if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_"))}
+                 if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_",
+                                  "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes"))}
+        if "header" in m:
+            extra["header"] = m["header"]
         kernels.append(dict(
             name=name, route="cuda", source=m["source"], replaces=m["replaces"],
-            launches=m["launches"], max_abs_err=max(c[f"{name}_err"] for c in cases),
-            mismatches=sum(c[f"{name}_mismatches"] for c in cases),
+            launches=m["launches"],
+            max_abs_err=max(v for c in checks for k, v in c.items() if own(name, k, "_err")),
+            mismatches=sum(v for c in checks for k, v in c.items()
+                           if own(name, k, "_mismatches")),
             ms=t["ms"], kernel_ms=t["ms"], plain_ms=t["plain_ms"],
             bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
             bytes=t["bytes"], library_ms=t.get("library_ms"), **extra))

@@ -565,10 +565,21 @@ def domain_bucket(pattern: Graph) -> Tuple[int, int, int]:
 #   "off"     — plain PyTorch reductions (`repro_torch.kernels.ref`);
 #   "sweep"   — one `arc_any_sweep` (K4) launch per AC sweep, popcounts by
 #               `popcount_rows` (K3) (the single-query path);
-#   "per-arc" — one `adjacency_any` (K5) launch per real (pattern, arc)
-#               slot, popcounts by K3 (the batched path, as in ``repro``,
-#               whose sweep kernel did not compose with vmap).
+#   "per-arc" — `adjacency_any` (K5) over the live (pattern, arc) pairs,
+#               one launch per AC sweep, popcounts by K3 (the batched path;
+#               ``repro`` named it for its per-arc-slot K5 calls, since its
+#               sweep kernel did not compose with vmap).
 PALLAS_MODES = ("off", "sweep", "per-arc")
+
+# AC sweeps that tested at least one arc (any layout, any kernel mode)
+# since the last `reset_sweep_count()`: what a route's kernel launches per
+# sweep are read against.
+ac_sweeps = 0
+
+
+def reset_sweep_count() -> None:
+    global ac_sweeps
+    ac_sweeps = 0
 
 
 def _slot_table(node: np.ndarray, take: np.ndarray, p_pad: int) -> np.ndarray:
@@ -637,10 +648,10 @@ def _device_fixpoint(
     synchronisation per iteration reads every lane's flags.
 
     ``tgt`` selects the layout: :class:`TargetDomainArrays` tests arc
-    support on dense adjacency planes (K4 per sweep or K5 per arc), a
+    support on dense adjacency planes (one launch per sweep over the arcs
+    of every live lane: K4 single, K5 batched), a
     :class:`CsrTargetDomainArrays` on CSR segments (K8, one launch per
-    sweep over the arcs of every live lane, in both kernel modes); the
-    rest is the same code.
+    sweep, in both kernel modes); the rest is the same code.
     """
     use_kernels = pallas_mode != "off"
     is_csr = isinstance(tgt, CsrTargetDomainArrays)
@@ -690,6 +701,7 @@ def _device_fixpoint(
                              torch.full((1, 1, w), -1, dtype=torch.int32, device=dev))
 
     def ac_sweep(bits, act):
+        global ac_sweeps
         lanes, slots = np.nonzero(act[:, None] & arc_live)  # the arcs to test
         masks = base_masks.clone()
         if lanes.size:
@@ -701,10 +713,11 @@ def _device_fixpoint(
                            deg_cap=tgt.deg_cap)
             elif pallas_mode == "sweep":
                 ok = kops.arc_any_sweep(tgt.adj_flat, on_dev(rows), src)
+            elif pallas_mode == "per-arc":
+                ok = kops.adjacency_any_pairs(tgt.adj_flat, on_dev(rows), src)
             else:
-                any_fn = kops.adjacency_any if pallas_mode == "per-arc" else kref.adjacency_any_ref
-                ok = torch.stack([any_fn(tgt.adj_flat[r], src[i])
-                                  for i, r in enumerate(rows.tolist())])
+                ok = kref.adjacency_any_pairs_ref(tgt.adj_flat, torch.from_numpy(rows), src)
+            ac_sweeps += 1
             masks[on_dev(lanes, torch.long), on_dev(slots, torch.long)] = kops.pack_bits(ok, w)
         return bits & _and_by_node(masks, arc_table), torch.zeros_like(unsat)
 
@@ -771,7 +784,8 @@ def device_fixpoint(
     ``batched=True`` takes pattern arrays with a leading batch axis (and an
     optional ``live`` lane mask) and returns ``[B, p_pad, w]`` bits and
     ``[B]`` flags; otherwise one pattern, ``[p_pad, w]`` and a bool.  As in
-    ``repro``, the batched path routes kernels per arc, not per sweep.
+    ``repro``, the batched path takes K5 (``"per-arc"``), not K4; it
+    launches K5 once per sweep over every live (pattern, arc) pair.
     """
     if pallas_mode not in PALLAS_MODES:
         raise ValueError(f"pallas_mode {pallas_mode!r} not in {PALLAS_MODES}")
@@ -871,9 +885,10 @@ def compute_domains_batch(
     All patterns share one bucket ``(p_pad, arc_pad, loop_pad)``;
     unspecified pads snap to the batch maxima.  ``batch_pad`` lanes beyond
     ``len(patterns)`` replicate lane 0, are frozen from the start (they
-    cost no sweep) and are discarded.  ``use_pallas`` tests each (pattern,
-    arc) slot with K5 (with :class:`CsrTargetDomainArrays` ``tgt_arrays``,
-    each sweep with one K8 launch) and counts with K3.
+    cost no sweep) and are discarded.  ``use_pallas`` tests the live
+    (pattern, arc) pairs of each sweep with one K5 launch (with
+    :class:`CsrTargetDomainArrays` ``tgt_arrays``, one K8 launch) and
+    counts with K3.
     """
     patterns = list(patterns)
     if not patterns:

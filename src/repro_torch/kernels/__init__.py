@@ -5,10 +5,12 @@
                     use_pallas=True)
   popcount_reduce — K3, per-row popcount (domain sizes in the device
                     domain fixpoint)
-  domain_ac       — K5 adjacency_any (one arc's support test, the batched
-                    fixpoint), K4 arc_any_sweep (every arc of a sweep,
-                    the single-query fixpoint) and K8 csr_arc_sweep (the
-                    same sweep over CSR planes, the sparse fixpoint)
+  domain_ac       — K5 adjacency_any (the support tests of a sweep's live
+                    (pattern, arc) pairs, the batched fixpoint), K4
+                    arc_any_sweep (every arc of a sweep, the single-query
+                    fixpoint), one kernel in csrc/arc_any.cuh; K8
+                    csr_arc_sweep (the same sweep over CSR planes, the
+                    sparse fixpoint)
   csr_extend      — K6 csr_extend and K7 csr_extend_bucketed, the sparse
                     expansion step (step_backend="csr" with use_pallas=True;
                     csr_walk="flat" / "bucketed")

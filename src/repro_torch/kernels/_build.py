@@ -3,8 +3,9 @@
 Each source ``src/repro_torch/csrc/<name>.cu`` exports one C function,
 ``<name>_launch``, and is compiled into its own shared library for Hopper
 (``sm_90a``).  Libraries go into ``build/repro_torch_kernels/`` at the root
-of the checkout, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing is compiled when
+of the checkout, named by a hash of the source, the local headers it
+includes (``#include "..."``, e.g. ``arc_any.cuh``) and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.  Nothing is compiled when
 a module is imported: the first launch of a kernel builds it, and
 :func:`build` builds several at once, one ``nvcc`` process per source, all
 started together.
@@ -15,11 +16,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, List, Sequence
 
 import torch
 
@@ -33,6 +35,7 @@ NVCC_FLAGS = (
 )
 
 _launchers: Dict[str, Callable] = {}
+_LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 
 def nvcc() -> str:
@@ -47,9 +50,28 @@ def nvcc() -> str:
     return found
 
 
+def sources(name: str) -> List[Path]:
+    """``csrc/<name>.cu`` and every local header it includes, directly or
+    through another header (``#include "..."``, resolved beside the
+    including file, as nvcc does first)."""
+    out: List[Path] = []
+    todo = [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in out:
+            continue
+        out.append(path)
+        todo += [path.parent / inc for inc in _LOCAL_INCLUDE.findall(path.read_text())]
+    return out
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a hash
+    of its :func:`sources` and the flags."""
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -60,11 +60,19 @@ def popcount_rows(bits) -> torch.Tensor:
 
 
 def adjacency_any(rows, mask) -> torch.Tensor:
-    """K5: ``any(rows[t] ∧ mask)`` per row, ``[n_t]`` int32
+    """K5 for one arc: ``any(rows[t] ∧ mask)`` per row, ``[n_t]`` int32
     (see `repro_torch.kernels.domain_ac`)."""
     if _on_card(rows):
         return _ac.adjacency_any_cuda(rows, mask)
     return kref.adjacency_any_ref(rows, mask)
+
+
+def adjacency_any_pairs(adj_flat, plane, masks) -> torch.Tensor:
+    """K5 over the pairs of one sweep: ``any(adj_flat[plane[i], t] ∧
+    masks[i])``, ``[n_pairs, n_t]`` int32 (see `repro_torch.kernels.domain_ac`)."""
+    if _on_card(masks):
+        return _ac.adjacency_any_pairs_cuda(adj_flat, plane, masks)
+    return kref.adjacency_any_pairs_ref(adj_flat, plane, masks)
 
 
 def arc_any_sweep(adj_flat, arc_row, masks) -> torch.Tensor:

@@ -342,19 +342,32 @@ def adjacency_any_ref(rows: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     return ((rows & mask[None, :]) != 0).any(dim=-1).to(torch.int32)
 
 
+def adjacency_any_pairs_ref(
+    adj_flat: torch.Tensor,  # [n_planes, n_t, w] int32
+    plane: torch.Tensor,  # [n_pairs] int32 plane index per pair
+    masks: torch.Tensor,  # [n_pairs, w] int32 (D(q) bitmap per pair)
+) -> torch.Tensor:
+    """The support tests of one sweep's (pattern, arc) pairs: ``out[i, t] =
+    any(adj_flat[plane[i], t] ∧ masks[i])`` -> ``[n_pairs, n_t]`` int32; a
+    plane index outside ``[0, n_planes)`` supports no node.  One pair at a
+    time, so the ``[n_pairs, n_t, w]`` gather is never materialized."""
+    out = torch.zeros((masks.shape[0], adj_flat.shape[1]), dtype=torch.int32,
+                      device=masks.device)
+    for i, r in enumerate(plane.tolist()):
+        if 0 <= r < adj_flat.shape[0]:
+            out[i] = adjacency_any_ref(adj_flat[r], masks[i])
+    return out
+
+
 def arc_any_sweep_ref(
     adj_flat: torch.Tensor,  # [n_planes, n_t, w] int32
     arc_row: torch.Tensor,  # [n_arcs] int32 plane index per arc
     masks: torch.Tensor,  # [n_arcs, w] int32 (D(q) bitmap per arc)
 ) -> torch.Tensor:
     """All arcs of one AC sweep: ``out[a, t] = any(adj_flat[arc_row[a], t]
-    ∧ masks[a])`` -> ``[n_arcs, n_t]`` int32.  One arc at a time, so the
-    ``[n_arcs, n_t, w]`` gather is never materialized."""
-    out = torch.empty((masks.shape[0], adj_flat.shape[1]), dtype=torch.int32,
-                      device=masks.device)
-    for a, r in enumerate(arc_row.tolist()):
-        out[a] = adjacency_any_ref(adj_flat[r], masks[a])
-    return out
+    ∧ masks[a])`` -> ``[n_arcs, n_t]`` int32, the same function as
+    :func:`adjacency_any_pairs_ref` (K4 and K5 share one kernel)."""
+    return adjacency_any_pairs_ref(adj_flat, arc_row, masks)
 
 
 def pack_bits_ref(flags: torch.Tensor, w: int) -> torch.Tensor:
