@@ -905,12 +905,29 @@ def csr_step_inputs(rng, up, b, w, mp, p_pad, device, max_real=None):
 CSR_ARGS = ("indices", "dom_bits", "seg_start", "seg_len", "child_pos", "depth")
 
 
-def csr_search_reads(x, want, deg_cap) -> int:
+def csr_pivot(lens, deg_cap, pivot="shortest"):
+    """Per lane the parent slot whose segment drives the walk: the shortest
+    real one (the first of equals), or with ``pivot="first"`` the first
+    real one (the TPU kernels' lead); and its length cut at ``deg_cap`` (0
+    without a real parent)."""
+    import torch
+
+    real = lens >= 0
+    if pivot == "first":
+        slot = real.to(torch.int32).argmax(dim=1)
+    else:
+        slot = torch.where(real, lens.clamp(0, deg_cap), deg_cap + 1).argmin(dim=1)
+    n = lens.clamp(0, deg_cap).gather(1, slot[:, None])[:, 0]
+    return slot, torch.where(real.any(dim=1), n, 0)
+
+
+def csr_search_reads(x, want, deg_cap, pivot="shortest") -> int:
     """Index reads of the binary searches the step needs for these inputs:
-    for each lead entry of a lane in ``want`` that differs from the entry
-    before it and is set in ``base``, one search per other real parent in
-    slot order, up to the first parent that lacks it; a search counts the
-    reads its loop makes (one per halving, one final compare)."""
+    for each pivot entry (:func:`csr_pivot`) of a lane in ``want`` that
+    differs from the entry before it and is set in ``base``, one search per
+    other real parent in slot order, up to the first parent that lacks it;
+    a search counts the reads its loop makes (one per halving, one final
+    compare)."""
     import torch
 
     idx = x["indices"].long()
@@ -924,9 +941,8 @@ def csr_search_reads(x, want, deg_cap) -> int:
     dev = cand.device
     ar = torch.arange(nb, device=dev)[:, None]
     real = lens >= 0
-    lead = real.to(torch.int32).argmax(dim=1)
+    lead, d_len = csr_pivot(lens, deg_cap, pivot)
     d_start = starts[ar[:, 0], lead]
-    d_len = torch.where(real.any(dim=1), lens[ar[:, 0], lead].clamp(0, deg_cap), 0)
     first = (cand != 0).to(torch.int32).argmax(dim=1)  # want: cand is not empty
     word = cand[ar[:, 0], first] & 0xFFFFFFFF
     v = first.long() * 32 + torch.log2((word & -word).double()).long()
@@ -957,25 +973,24 @@ def csr_search_reads(x, want, deg_cap) -> int:
     return reads
 
 
-def csr_step_bytes(x, n_p, deg_cap) -> int:
+def csr_step_bytes(x, n_p, deg_cap, pivot="shortest") -> int:
     """Bytes K6/K7 must move for these inputs: cand, the segment bounds and
     depth/position of every lane; used and the dom row (each distinct row
-    once) for lanes that want a child; of the lead row the entries the walk
-    needs (its length), and the reads of the searches that
-    :func:`csr_search_reads` counts; cand2, child and meta written once."""
+    once) for lanes that want a child; of the pivot row (the shortest real
+    segment, which finds the same survivors as any other; ``pivot="first"``
+    counts the first real one instead) the entries the walk needs (its
+    length), and the reads of the searches that :func:`csr_search_reads`
+    counts; cand2, child and meta written once."""
     import torch
 
     b, w = x["cand"].shape
     mp = x["seg_len"].shape[1]
     want = (x["cand"] != 0).any(dim=1) & (x["depth"] + 1 < n_p)
-    lens = x["seg_len"][want]
-    real = lens >= 0
-    lead = torch.where(real.any(dim=1), lens.clamp(0, deg_cap).gather(
-        1, real.to(torch.int32).argmax(dim=1, keepdim=True))[:, 0], 0)
+    _, lead = csr_pivot(x["seg_len"][want], deg_cap, pivot)
     n_want = int(want.sum())
     dom_rows = torch.unique(x["child_pos"][want]).numel()
     reads = words_bytes(b * w + b * (2 * mp + 2) + n_want * w + dom_rows * w
-                        + int(lead.sum()) + csr_search_reads(x, want, deg_cap))
+                        + int(lead.sum()) + csr_search_reads(x, want, deg_cap, pivot))
     return reads + words_bytes(2 * b * w + 4 * b)
 
 
@@ -1046,18 +1061,86 @@ def random_csr_upload(rng, n_planes, n_t, deg_cap, device, dup=True):
     return upload_csr(planes, device)
 
 
-def check_sparse_kernels_edges(device) -> list:
-    """K6, K7 and K8 at edge shapes: w ∈ {1, 33, 1,034}, mp = 0, lanes
-    without parents, zero-length rows, rows with duplicate entries, a walk
-    cap below the longest row (K8), 70,000 arcs in one sweep (K8)."""
+def hub_step_inputs(rng, b, w, hub_len, device):
+    """Sparse-step inputs around hub rows: one plane of ``n_t = 32 · w``
+    nodes whose rows 0 and 1 are hubs (``hub_len`` and ``hub_len // 2``
+    sorted ids, several times the kernels' long-walk threshold) and whose
+    other rows are short (0-12 ids, mostly drawn from hub 0, some with an
+    adjacent duplicate).  Lanes cycle through the parent slot orders (hub,
+    short), (short, hub), (hub, hub), (hub), (short, short) and (unused,
+    hub); random dense domains, sparse used-bitmaps, cand as in
+    :func:`csr_step_inputs`."""
     import numpy as np
     import torch
+
+    from repro_torch.core.extend import upload_csr
+    from repro_torch.core.graph import CsrPlanes
+
+    n_t = 32 * w
+    hub0 = np.sort(rng.choice(n_t, hub_len, replace=False))
+    hub1 = np.sort(rng.choice(n_t, hub_len // 2, replace=False))
+    rows = [hub0, hub1]
+    for i in range(2, n_t):
+        k = int(rng.integers(0, 13))
+        r = np.sort(rng.choice(hub0 if i % 3 else n_t, size=k, replace=False))
+        if r.size >= 2 and i % 5 == 0:
+            r[1] = r[0]
+        rows.append(r)
+    lens = [r.size for r in rows]
+    ptr = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    up = upload_csr(CsrPlanes(n_t=n_t, indptr=ptr[None, :], indices=np.concatenate(rows)
+                              .astype(np.int32), deg_cap=max(lens)), device)
+    short = rng.integers(2, n_t, (b, 2))
+    orders = [(0, short[:, 0]), (short[:, 0], 0), (0, 1), (0, -1), (short[:, 0], short[:, 1]),
+              (-1, 0)]
+    node = np.zeros((b, 2), np.int64)
+    for lane in range(b):
+        a, c = orders[lane % len(orders)]
+        node[lane] = [a if np.isscalar(a) else a[lane], c if np.isscalar(c) else c[lane]]
+    seg_start = ptr[node.clip(0)].astype(np.int32)
+    seg_len = np.where(node >= 0, ptr[node.clip(0) + 1] - ptr[node.clip(0)], -1).astype(np.int32)
+
+    def u32(*shape):
+        return rng.integers(0, 2**32, shape, dtype=np.uint32)
+
+    cand = u32(b, w)
+    one_word = np.arange(w)[None, :] == rng.integers(0, w, b)[:, None]
+    cand = np.where((rng.random(b) < 0.5)[:, None], np.where(one_word, cand, 0), cand)
+    cand[5::7] = 0
+    n_p = 5
+    host = dict(dom_bits=u32(8, w) | u32(8, w) | u32(8, w), seg_start=seg_start, seg_len=seg_len,
+                child_pos=rng.integers(0, 8, b).astype(np.int32),
+                depth=np.where(np.arange(b) % 11 == 10, n_p - 1, rng.integers(0, n_p - 1, b))
+                .astype(np.int32), used=u32(b, w) & u32(b, w) & u32(b, w), cand=cand)
+    x = {k: torch.from_numpy(np.ascontiguousarray(v).view(np.int32)).to(device)
+         for k, v in host.items()}
+    x["indices"] = up.indices
+    return x, n_p, up.deg_cap
+
+
+def check_sparse_kernels_edges(device) -> list:
+    """K6, K7 and K8 at edge shapes: w ∈ {1, 2, 3, 33, 35, 1,034, 1,035},
+    mp = 0, lanes without parents, zero-length rows, rows with duplicate
+    entries, a walk cap below the longest row (K8), 70,000 arcs in one
+    sweep (K8); for K6/K7 also b = 1 and 7 (one lane per block), b = 4,097
+    and 2,115 (8 lanes per block and a partial last block), cand and used as
+    views off a 16-byte boundary, and hub rows driving or searched in either
+    slot order (the block-wide walk), at 8 lanes per block with long and
+    short lanes sharing full blocks and the partial last one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import csr_extend as ce
 
     rng = np.random.default_rng(13)
     cases = []
     for n_planes, n_t, w, deg_cap, b, mp in [(2, 20, 1, 8, 7, 2), (2, 30, 1, 8, 5, 0),
                                              (4, 200, 33, 16, 33, 3), (2, 1000, 33, 24, 64, 8),
-                                             (2, 1500, 1034, 32, 96, 4), (2, 60, 1034, 8, 4, 0)]:
+                                             (2, 1500, 1034, 32, 96, 4), (2, 60, 1034, 8, 4, 0),
+                                             (2, 50, 2, 8, 9, 2), (2, 90, 3, 8, 13, 3),
+                                             (3, 1100, 35, 40, 70, 4), (2, 2000, 1035, 24, 96, 3),
+                                             (2, 300, 33, 16, 1, 2), (2, 300, 1034, 16, 7, 3),
+                                             (2, 1500, 1034, 32, 4097, 4)]:
         up = random_csr_upload(rng, n_planes, n_t, deg_cap, device)
         x, n_p = csr_step_inputs(rng, up, b, w, mp, 8, device)
         cases.append(csr_step_case(x, n_p, up.deg_cap))
@@ -1071,6 +1154,19 @@ def check_sparse_kernels_edges(device) -> list:
                               mask="random" if fill is None else hex(fill)))
         cut = up._replace(deg_cap=max(1, up.deg_cap // 2))  # rows longer than the walk cap
         cases.append(dict(csr_sweep_case(cut, n_t, arc_row, masks), mask="cut"))
+    # cand and used one word past a 16-byte boundary (the wrapper realigns them)
+    up = random_csr_upload(rng, 2, 500, 24, device)
+    x, n_p = csr_step_inputs(rng, up, 40, 35, 3, 8, device)
+    for k in ("cand", "used"):
+        x[k] = torch.cat([x[k].new_zeros(1), x[k].flatten()])[1:].view(x[k].shape)
+    cases.append(dict(csr_step_case(x, n_p, up.deg_cap), inputs="offset views"))
+    # hub rows of 1,100 / 550 and 1,200 / 600 entries in either slot, at w 35
+    # and 1,035 (one lane per block) and at w 35 with b = 2,115 (8 lanes per
+    # block, 3 in the last one)
+    for w, b, hub_len in ((35, 60, 1100), (1035, 97, 1200), (35, 2115, 1100)):
+        x, n_p, cap = hub_step_inputs(rng, b, w, hub_len, device)
+        cases.append(dict(csr_step_case(x, n_p, cap), inputs="hub rows",
+                          lanes_per_block=ce.csr_step_layout(w, 2, b).lanes))
     # more arcs than one grid dimension's 65,535 blocks, in one launch
     up = random_csr_upload(rng, 3, 40, 8, device)
     n_arcs = 70_000
@@ -1321,19 +1417,24 @@ def check_sparse_kernels_full(device, fw) -> tuple:
     args = [xa[k] for k in CSR_ARGS] + [n_p, xa["used"], xa["cand"]]
     cap = fw["A"].deg_cap
     step_bytes = csr_step_bytes(xa, n_p, cap)
+    first_bytes = csr_step_bytes(xa, n_p, cap, pivot="first")
     b, w = xa["cand"].shape
     for name, kern, plain in (
             ("csr_extend", ce.csr_extend_cuda, kref.csr_extend_ref),
             ("csr_extend_bucketed", ce.csr_extend_bucketed_cuda, kref.csr_extend_bucketed_ref)):
         timing[name] = dict(ms=cuda_ms(lambda: kern(*args, deg_cap=cap)),
                             plain_ms=cuda_ms(lambda: plain(*args, deg_cap=cap), reps=10),
-                            bytes=step_bytes, ops=3 * b * w)
+                            bytes=step_bytes, bytes_first_parent=first_bytes, ops=3 * b * w)
     bargs = [xb[k] for k in CSR_ARGS] + [n_pb, xb["used"], xb["cand"]]
     for name, kern in (("csr_extend", ce.csr_extend_cuda),
                        ("csr_extend_bucketed", ce.csr_extend_bucketed_cuda)):
         timing[name]["target_b_ms"] = cuda_ms(lambda: kern(*bargs, deg_cap=fw["B"].deg_cap),
                                               reps=10)
         timing[name]["target_b_bytes"] = csr_step_bytes(xb, n_pb, fw["B"].deg_cap)
+        timing[name]["target_b_bound_ms"] = (timing[name]["target_b_bytes"] / HBM_BYTES_PER_S
+                                             * 1e3)
+        timing[name]["target_b_bytes_first_parent"] = csr_step_bytes(
+            xb, n_pb, fw["B"].deg_cap, pivot="first")
 
     sw = fw["sweep"]
     up = sw["upload"]
@@ -1765,9 +1866,11 @@ def main() -> int:
                               replaces="src/repro/kernels/domain_ac.py:92",
                               launches=batch_launches["sweep"]["arc_any_sweep"]),
         "csr_extend": dict(source="src/repro_torch/csrc/csr_extend.cu",
+                           header="src/repro_torch/csrc/csr_extend.cuh",
                            replaces="src/repro/kernels/csr_extend.py:129",
                            launches=phase5["csr_extend"]),
         "csr_extend_bucketed": dict(source="src/repro_torch/csrc/csr_extend_bucketed.cu",
+                                    header="src/repro_torch/csrc/csr_extend.cuh",
                                     replaces="src/repro/kernels/csr_extend.py:319",
                                     launches=phase5["csr_extend_bucketed"]),
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
