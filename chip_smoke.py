@@ -8,11 +8,14 @@ Phases, each printed as one JSON line:
    ``sm_90a``, one process per source, all started together);
 2. kernels — each CUDA kernel held against its plain PyTorch version on the
    card, at the main path's shapes and at ragged ones (0 mismatched words
-   required; K5 in its one-arc and its batched form, the latter also with
-   pairs on planes out of range, more pairs than one mask chunk, and
-   all-zero and all-ones masks and rows), and timed with CUDA events beside
-   the plain version and the least time the card could take for the same
-   work;
+   required; K1 and K2 also at their shared kernel's boundaries: b 1, 7,
+   2,115 and 16,384, mp 9 and 33, w ≡ 0, 1, 2, 3 (mod 4) with the row table
+   at each word offset, every lane empty or a match, every slot neutral,
+   all-zero and all-ones rows; K5 in its one-arc and its batched form, the
+   latter also with pairs on planes out of range, more pairs than one mask
+   chunk, and all-zero and all-ones masks and rows), and timed with CUDA
+   events beside the plain version and the least time the card could take
+   for the same work (K1 and K2 also with the L2 flushed before each call);
 3. main path — the paper's largest PPIS32-size target (12,575 nodes) and
    its six patterns through ``SubgraphIndex.build`` → ``Enumerator.prepare``
    → ``Enumerator.run`` with the fused kernel (``step_backend="pallas"``),
@@ -21,7 +24,10 @@ Phases, each printed as one JSON line:
    three runs and with the sequential oracle, and each kernel must have
    been launched by the run that uses it.  One more warm run of each path's
    deepest query under ``torch.profiler`` gives the card's busy share and
-   the kernel launches per engine step;
+   the kernel launches per engine step, and one more records the arguments
+   of its K1 (``pallas``) or K2 (``jnp+use_pallas``) call with the most
+   valid lanes: K1 and K2 are checked on them (0 mismatched words) and
+   timed, warm and cold, beside their bound and the plain version;
 4. batch path — the same target with 24 patterns (8 each of 8, 16 and 24
    edges), under ``ri-ds-si-fc`` and ``ri-ds-si-acfc``:
    ``Enumerator.prepare_batch`` with the device fixpoint through K5
@@ -193,6 +199,28 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return statistics.median(events[i].elapsed_time(events[i + 1]) for i in range(reps))
 
 
+def cuda_ms_cold(fn, reps: int = 30, warmup: int = 3) -> float:
+    """As :func:`cuda_ms`, with the L2 cache flushed before each call: a
+    256 MB buffer (five times the H100's 50 MB L2) is written between calls,
+    outside the events that time them."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    end = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(100_000_000)
+    for i in range(reps):
+        flush.zero_()
+        start[i].record()
+        fn()
+        end[i].record()
+    torch.cuda.synchronize()
+    return statistics.median(start[i].elapsed_time(end[i]) for i in range(reps))
+
+
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -276,13 +304,105 @@ def op_count(x, mp_real_per_lane) -> int:
     return int(b * w * (1 + mp_real_per_lane))
 
 
-def check_kernels(device):
-    import numpy as np
+def offset_view(t, k: int):
+    """A contiguous copy of ``t`` that starts ``k`` words past a 16-byte
+    boundary."""
+    buf = t.new_zeros(t.numel() + 4)
+    view = buf[k:k + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def dense_step_args(x, n_p):
+    """K1's and K2's arguments from :func:`kernel_inputs`' dictionary."""
+    k1 = (x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["depth"], n_p, x["used"], x["cand"])
+    k2 = (x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["used"])
+    return k1, k2
+
+
+def dense_step_case(x, n_p, **label) -> dict:
+    """K1 and K2 against their plain versions on one set of inputs (0
+    mismatched words required), with the lanes per block of the launch."""
     import torch
 
     from repro_torch.kernels import candidate_mask as cm_mod
     from repro_torch.kernels import extend_step as es_mod
     from repro_torch.kernels import ref as kref
+
+    k1, k2 = dense_step_args(x, n_p)
+    km, pm = cm_mod.candidate_mask_cuda(*k2), kref.candidate_mask_ref(*k2)
+    ke, pe = es_mod.extend_step_cuda(*k1), kref.extend_step_ref(*k1)
+    torch.cuda.synchronize()
+    b, w = x["used"].shape
+    mp = x["row_idx"].shape[1]
+    return dict(b=b, w=w, mp=mp, n_rows=x["rows"].shape[0] - 1, p_pad=x["dom_bits"].shape[0],
+                **label, lanes_per_block=es_mod.dense_step_layout(mp, b).lanes,
+                candidate_mask_mismatches=int((km != pm).sum()),
+                extend_step_mismatches=sum(int((k != p).sum()) for k, p in zip(ke, pe)),
+                candidate_mask_err=max_abs_err(km, pm),
+                extend_step_err=max(max_abs_err(k, p) for k, p in zip(ke, pe)))
+
+
+def dense_step_timing(x, n_p, n_rows) -> dict:
+    """K1 and K2 timed on one set of inputs: warm L2 (``ms``) and flushed
+    before each call (``cold_ms``), beside the plain version, the bytes each
+    must move and the operations, with the lanes that hold candidates."""
+    from repro_torch.kernels import candidate_mask as cm_mod
+    from repro_torch.kernels import extend_step as es_mod
+    from repro_torch.kernels import ref as kref
+
+    k1, k2 = dense_step_args(x, n_p)
+    b, w = x["used"].shape
+    real = float((x["row_idx"] != n_rows).sum()) / b
+    valid = int((x["cand"] != 0).any(dim=1).sum())
+    want = int(((x["cand"] != 0).any(dim=1) & (x["depth"] + 1 < n_p)).sum())
+    return {
+        "candidate_mask": dict(
+            ms=cuda_ms(lambda: cm_mod.candidate_mask_cuda(*k2)),
+            cold_ms=cuda_ms_cold(lambda: cm_mod.candidate_mask_cuda(*k2)),
+            plain_ms=cuda_ms(lambda: kref.candidate_mask_ref(*k2)),
+            bytes=candidate_mask_bytes(x, n_rows), ops=op_count(x, real), valid_lanes=valid),
+        "extend_step": dict(
+            ms=cuda_ms(lambda: es_mod.extend_step_cuda(*k1)),
+            cold_ms=cuda_ms_cold(lambda: es_mod.extend_step_cuda(*k1)),
+            plain_ms=cuda_ms(lambda: kref.extend_step_ref(*k1)),
+            bytes=extend_step_bytes(x, n_rows, n_p), ops=op_count(x, real) + 2 * b * w,
+            valid_lanes=valid, lanes_wanting_child=want),
+    }
+
+
+# K1 / K2 edge cases (b, w, mp, n_rows, p_pad, what), beside the shapes of
+# check_kernels: b 1 and 7 (one lane per block), 2,115 and 16,384 (8 lanes
+# per block; 2,115 leaves 3 in the last block), mp 9 and 33 (lanes with
+# more rows than one group of a pass holds; 33 takes two trips of row
+# indices), w 1,034 / 1,035 / 1,036 (many passes), and inputs with every
+# lane empty, every lane a match, every slot neutral, all-zero and
+# all-ones rows
+DENSE_EDGES = [(1, 393, 8, 600, 32, "random"), (7, 393, 8, 600, 32, "random"),
+               (2115, 393, 8, 600, 32, "random"), (16384, 393, 8, 600, 32, "random"),
+               (301, 393, 9, 600, 32, "random"), (301, 393, 33, 600, 32, "random"),
+               (70, 1035, 33, 300, 16, "random"), (97, 1034, 8, 300, 16, "random"),
+               (4096, 393, 8, 600, 32, "all lanes empty"),
+               (4096, 393, 8, 600, 32, "all lanes matches"),
+               (301, 393, 8, 600, 32, "all slots neutral"), (301, 37, 8, 60, 8, "zero rows"),
+               (301, 1036, 8, 60, 8, "ones rows")]
+
+
+def dense_edge_inputs(rng, b, w, mp, n_rows, p_pad, what, device):
+    x, n_p = kernel_inputs(rng, b, w, mp, n_rows, p_pad, device)
+    if what == "all lanes empty":
+        x["cand"].zero_()
+    elif what == "all lanes matches":
+        x["depth"].fill_(n_p - 1)
+    elif what == "all slots neutral":
+        x["row_idx"].fill_(n_rows)
+    elif what in ("zero rows", "ones rows"):
+        x["rows"][:n_rows] = 0 if what == "zero rows" else -1
+    return x, n_p
+
+
+def check_kernels(device):
+    import numpy as np
 
     rng = np.random.default_rng(11)
     main = (4096, (N_T + 31) // 32, MAIN_MP, 2 * N_T, MAIN_P_PAD)
@@ -292,36 +412,25 @@ def check_kernels(device):
     timing = {}
     for b, w, mp, n_rows, p_pad in shapes:
         x, n_p = kernel_inputs(rng, b, w, mp, n_rows, p_pad, device)
-        km = cm_mod.candidate_mask_cuda(x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["used"])
-        pm = kref.candidate_mask_ref(x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["used"])
-        ke = es_mod.extend_step_cuda(x["rows"], x["dom_bits"], x["pos"], x["row_idx"],
-                                     x["depth"], n_p, x["used"], x["cand"])
-        pe = kref.extend_step_ref(x["rows"], x["dom_bits"], x["pos"], x["row_idx"],
-                                  x["depth"], n_p, x["used"], x["cand"])
-        torch.cuda.synchronize()
-        case = dict(b=b, w=w, mp=mp, n_rows=n_rows, p_pad=p_pad,
-                    candidate_mask_mismatches=int((km != pm).sum()),
-                    extend_step_mismatches=sum(int((k != p).sum()) for k, p in zip(ke, pe)),
-                    candidate_mask_err=max_abs_err(km, pm),
-                    extend_step_err=max(max_abs_err(k, p) for k, p in zip(ke, pe)))
-        checks.append(case)
+        checks.append(dense_step_case(x, n_p))
         if (b, w, mp, n_rows, p_pad) == main:
-            real = float((x["row_idx"] != n_rows).sum()) / b
-            timing["candidate_mask"] = dict(
-                ms=cuda_ms(lambda: cm_mod.candidate_mask_cuda(
-                    x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["used"])),
-                plain_ms=cuda_ms(lambda: kref.candidate_mask_ref(
-                    x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["used"])),
-                bytes=candidate_mask_bytes(x, n_rows), ops=op_count(x, real))
-            timing["extend_step"] = dict(
-                ms=cuda_ms(lambda: es_mod.extend_step_cuda(
-                    x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["depth"], n_p,
-                    x["used"], x["cand"])),
-                plain_ms=cuda_ms(lambda: kref.extend_step_ref(
-                    x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["depth"], n_p,
-                    x["used"], x["cand"])),
-                bytes=extend_step_bytes(x, n_rows, n_p), ops=op_count(x, real) + 2 * b * w)
-        del x, km, pm, ke, pe
+            timing = dense_step_timing(x, n_p, n_rows)
+        del x
+    for b, w, mp, n_rows, p_pad, what in DENSE_EDGES:
+        x, n_p = dense_edge_inputs(rng, b, w, mp, n_rows, p_pad, what, device)
+        checks.append(dense_step_case(x, n_p, inputs=what))
+        del x
+    # w ≡ 0, 1, 2, 3 (mod 4), the table's rows and dom rows at each of the
+    # four word offsets from a 16-byte boundary, cand and used at another
+    # (K1's wrapper realigns cand); rows of odd w sit at every offset
+    for w in (36, 37, 38, 39, 393, 1034, 1035, 1036):
+        for k in range(4):
+            x, n_p = kernel_inputs(rng, 61, w, 8, 40, 8, device)
+            x["rows"] = offset_view(x["rows"], k)
+            x["dom_bits"] = offset_view(x["dom_bits"], (k + 1) % 4)
+            x["cand"] = offset_view(x["cand"], (k + 2) % 4)
+            x["used"] = offset_view(x["used"], (k + 3) % 4)
+            checks.append(dense_step_case(x, n_p, inputs=f"rows at word offset {k}"))
     return checks, timing
 
 
@@ -433,6 +542,91 @@ def profile_query(enum, query) -> dict:
                      for e in top])
 
 
+def record_step(enum, query, kernel: str) -> dict:
+    """The arguments of the call of ``kernel`` (K1 ``extend_step`` or K2
+    ``candidate_mask``) with the most valid lanes (lanes whose popped entry
+    holds candidates) in one more run of ``query``, as
+    :func:`kernel_inputs`' dictionary.  The rows and dom rows are the plan's
+    own; the per-lane arguments are copies."""
+    from repro_torch.core import extend
+    from repro_torch.kernels import ops
+
+    best = dict(valid=-1)
+    step = dict(valid=0)  # the valid lanes of the jnp step now running
+    op = getattr(ops, kernel)
+    expand = extend.JnpStepBackend.expand_lanes
+
+    def counted(self, depth, map_, used, cand):
+        step["valid"] = int((cand != 0).any(dim=1).sum())
+        return expand(self, depth, map_, used, cand)
+
+    def k1(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand):
+        valid = int((cand != 0).any(dim=1).sum())
+        if valid > best["valid"]:
+            best.update(valid=valid, n_p=n_p, x=dict(
+                rows=rows, dom_bits=dom_bits, pos=child_pos.clone(), row_idx=row_idx.clone(),
+                depth=depth.clone(), used=used.clone(), cand=cand.clone()))
+        return op(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
+
+    def k2(rows, dom_bits, pos, row_idx, used):
+        if step["valid"] > best["valid"]:
+            best.update(valid=step["valid"], n_p=None, x=dict(
+                rows=rows, dom_bits=dom_bits, pos=pos.clone(), row_idx=row_idx.clone(),
+                used=used.clone()))
+        return op(rows, dom_bits, pos, row_idx, used)
+
+    setattr(ops, kernel, k1 if kernel == "extend_step" else k2)
+    extend.JnpStepBackend.expand_lanes = counted
+    try:
+        enum.run(query)
+    finally:
+        setattr(ops, kernel, op)
+        extend.JnpStepBackend.expand_lanes = expand
+    if best["valid"] < 0:
+        raise AssertionError(f"{query.name}: no {kernel} call to record")
+    return dict(best, query=query.name)
+
+
+def check_real_steps(steps: dict) -> tuple:
+    """K1 and K2 against their plain versions, and timed (warm and cold L2),
+    on the step of phase 3's deepest query with the most valid lanes."""
+    import torch
+
+    from repro_torch.kernels import candidate_mask as cm_mod
+    from repro_torch.kernels import extend_step as es_mod
+    from repro_torch.kernels import ref as kref
+
+    cases, timing = [], {}
+    for name, s in steps.items():
+        x, n_p = s["x"], s["n_p"]
+        n_rows = x["rows"].shape[0] - 1
+        b, w = x["used"].shape
+        mp = x["row_idx"].shape[1]
+        if name == "extend_step":
+            args = (x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["depth"], n_p,
+                    x["used"], x["cand"])
+            kern, plain = es_mod.extend_step_cuda, kref.extend_step_ref
+            nbytes = extend_step_bytes(x, n_rows, n_p)
+        else:
+            args = (x["rows"], x["dom_bits"], x["pos"], x["row_idx"], x["used"])
+            kern, plain = cm_mod.candidate_mask_cuda, kref.candidate_mask_ref
+            nbytes = candidate_mask_bytes(x, n_rows)
+        got, want = kern(*args), plain(*args)
+        if name == "candidate_mask":
+            got, want = (got,), (want,)
+        torch.cuda.synchronize()
+        cases.append({"inputs": f"real step of {s['query']}", "b": b, "w": w, "mp": mp,
+                      "valid_lanes": s["valid"],
+                      f"{name}_mismatches": sum(int((g != p).sum()) for g, p in zip(got, want)),
+                      f"{name}_err": max(max_abs_err(g, p) for g, p in zip(got, want))})
+        timing[name] = dict(valid_lanes=s["valid"], bytes=nbytes,
+                            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                            ms=cuda_ms(lambda: kern(*args)),
+                            cold_ms=cuda_ms_cold(lambda: kern(*args)),
+                            plain_ms=cuda_ms(lambda: plain(*args)))
+    return cases, timing
+
+
 def run_main_path(device):
     from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
     from repro_torch.core.ref import ref_enumerate
@@ -454,7 +648,8 @@ def run_main_path(device):
         "jnp+use_pallas": dict(step_backend="jnp", use_pallas=True),
         "jnp": dict(step_backend="jnp"),
     }
-    results, launches = {}, {}
+    results, launches, real_steps = {}, {}, {}
+    kernel_of = {"pallas": "extend_step", "jnp+use_pallas": "candidate_mask"}
     for label, kw in backends.items():
         enum = Enumerator(index, config=EngineConfig(**ENGINE_KW, **kw), variant=VARIANT,
                           device=device)
@@ -474,6 +669,8 @@ def run_main_path(device):
                                 retries=ms.retries, prepare_s=ms.preprocess_s,
                                 match_s=ms.match_s, states_per_s=ms.states / ms.match_s)
                            for ms in results[label]]))
+        if label in kernel_of:  # a real step's arguments, for phase 2's checks and times
+            real_steps[kernel_of[label]] = record_step(enum, queries[deepest], kernel_of[label])
 
     def counters(ms):
         return (ms.matches, ms.states, ms.steps, ms.steals, ms.steal_rounds,
@@ -499,7 +696,7 @@ def run_main_path(device):
         raise AssertionError("the pallas run never launched extend_step")
     if launches["jnp+use_pallas"]["candidate_mask"] == 0:
         raise AssertionError("the jnp+use_pallas run never launched candidate_mask")
-    return launches
+    return launches, real_steps
 
 
 
@@ -1817,7 +2014,14 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
-    launches = run_main_path(device)
+    launches, real_steps = run_main_path(device)
+    real_cases, real_timing = check_real_steps(real_steps)
+    emit(dict(phase="dense_step_real_inputs", cases=real_cases, timing=real_timing))
+    if any(v for c in real_cases for k, v in c.items() if k.endswith("_mismatches")):
+        raise AssertionError(f"K1 / K2 disagree on a real step's inputs: {real_cases}")
+    checks += real_cases
+    for name, rt in real_timing.items():
+        timing[name].update({f"real_step_{k}": v for k, v in rt.items()})
     t0 = time.perf_counter()
     batch_launches, full_width = run_batch_path(device)
     full_case, full_timing = check_domain_kernels_full(device, full_width)
@@ -1849,9 +2053,11 @@ def main() -> int:
 
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
+                            header="src/repro_torch/csrc/dense_step.cuh",
                             replaces="src/repro/kernels/extend_step.py:125",
                             launches=launches["pallas"]["extend_step"]),
         "candidate_mask": dict(source="src/repro_torch/csrc/candidate_mask.cu",
+                               header="src/repro_torch/csrc/dense_step.cuh",
                                replaces="src/repro/kernels/candidate_mask.py:62",
                                launches=launches["jnp+use_pallas"]["candidate_mask"]),
         "popcount_rows": dict(source="src/repro_torch/csrc/popcount_rows.cu",
@@ -1892,7 +2098,8 @@ def main() -> int:
         t_ops = t["ops"] / t.get("ops_per_s", LANE_OPS_PER_S) * 1e3
         extra = {k: v for k, v in t.items()
                  if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_",
-                                  "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes"))}
+                                  "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes",
+                                  "cold_", "real_step_", "valid_", "lanes_"))}
         if "header" in m:
             extra["header"] = m["header"]
         kernels.append(dict(

@@ -131,6 +131,19 @@ def launcher(name: str, argtypes: Sequence[type]):
     return fn
 
 
+def header_constants(text: str) -> dict:
+    """The integer ``constexpr``s of a CUDA header, by name: a value is an
+    integer literal or a product of literals and earlier constants."""
+    out = {}
+    for name, expr in re.findall(r"constexpr\s+[\w ]+?\s+(k\w+)\s*=\s*([^;]+);", text):
+        val = 1
+        for tok in expr.split("*"):
+            tok = tok.strip().rstrip("uUlL")
+            val *= out[tok] if tok in out else int(tok, 0)
+        out[name] = val
+    return out
+
+
 def check_cuda_args(tensors, names):
     """Raise unless every tensor is a contiguous int32 CUDA tensor on one
     device (what the kernels take)."""

@@ -10,11 +10,14 @@ row appended at index ``n_rows``, which unused parent slots point at.
 
 Replaces the Pallas TPU kernel ``repro/kernels/candidate_mask.py``
 (``candidate_mask``, grid ``(b, mp + 1)`` with a scalar-prefetched row
-index map).  The CUDA kernel (``csrc/candidate_mask.cu``) gives one thread
-block of 128 threads to each lane; the block loads the lane's row indices
-itself and ANDs the rows in registers, striding over the words.  It is
-bound by memory: per launch it reads ``b · (2 + mp_real) · w · 4`` bytes
-(dom row, used row, the real adjacency rows) and writes ``b · w · 4``.
+index map).  The source ``csrc/candidate_mask.cu`` is a thin launcher of
+``csrc/dense_step.cuh``, K1's device code without its pass over ``cand``,
+its meta row and its early stop (see `repro_torch.kernels.extend_step`):
+one warp per lane, ``dense_step_layout`` lanes per block; a ballot compacts
+the real parent slots, and each pass loads its words of ``used``, the dom
+row and the real rows before it ANDs any.  Bound by memory: per launch it
+reads ``used``, the index words, the dom rows and the real adjacency rows
+(each distinct row once) and writes ``b · w`` words.
 
 The plain version is `repro_torch.kernels.ref.candidate_mask_ref`;
 `repro_torch.kernels.ops.candidate_mask` picks between the two by device.
@@ -27,6 +30,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.extend_step import dense_step_layout
 from repro_torch.kernels.ref import candidate_mask_ref  # noqa: F401  (the plain version)
 
 launches = 0  # kernel launches since ops.reset_launch_counts()
@@ -46,6 +50,8 @@ def candidate_mask_cuda(rows, dom_bits, pos, row_idx, used) -> torch.Tensor:
     if pos.shape != (b,) or row_idx.dim() != 2 or row_idx.shape[0] != b:
         raise ValueError(f"pos {tuple(pos.shape)} / row_idx {tuple(row_idx.shape)} "
                          f"must be [{b}] / [{b}, mp]")
+    if dense_step_layout(row_idx.shape[1], b).lanes < 1:
+        raise ValueError(f"mp = {row_idx.shape[1]} parent slots exceed the kernel's shared memory")
     out = torch.empty_like(used)
     if b == 0:
         return out

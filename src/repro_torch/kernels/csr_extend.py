@@ -43,12 +43,12 @@ The plain versions are `repro_torch.kernels.ref.csr_extend_ref` and
 from __future__ import annotations
 
 import ctypes
-import re
 from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import header_constants
 from repro_torch.kernels.ref import (  # noqa: F401  (the plain versions)
     META_WIDTH,
     csr_extend_bucketed_ref,
@@ -60,19 +60,6 @@ launches = {"csr_extend": 0, "csr_extend_bucketed": 0}  # since ops.reset_launch
 # base and child live in shared memory: 2 · (w + 3) words per lane, and one
 # lane's must fit the 227 KB a block can be given
 MAX_W = 227 * 1024 // 8 - 64
-
-
-def header_constants(text: str) -> dict:
-    """The integer ``constexpr``s of a CUDA header, by name: a value is an
-    integer literal or a product of literals and earlier constants."""
-    out = {}
-    for name, expr in re.findall(r"constexpr\s+[\w ]+?\s+(k\w+)\s*=\s*([^;]+);", text):
-        val = 1
-        for tok in expr.split("*"):
-            tok = tok.strip().rstrip("uUlL")
-            val *= out[tok] if tok in out else int(tok, 0)
-        out[name] = val
-    return out
 
 
 # csrc/csr_extend.cuh owns the block and the layout rule of its shared
