@@ -60,8 +60,13 @@ Phases, each printed as one JSON line:
    Target B, hub-heavy (``power_law_graph``: 33,067 nodes, maximum degree
    16,373), runs one pattern under ``ri`` through K6 and K7, which must
    agree with each other and ``ref_enumerate``; each one's query time is
-   printed.  K6, K7 and K8 are checked (0 mismatched words) and timed at
-   full width on both targets' CSR arrays, and at ragged edge cases;
+   printed.  The same pattern is prepared under ``ri-ds-si-acfc`` on target
+   B's CSR index through K8, whose domains must equal the plain fixpoint's.
+   K6, K7 and K8 are checked (0 mismatched words) and timed at full width on
+   both targets' CSR arrays (K8 on target B with the hub pattern's final and
+   initial domains and with all-zero masks), and at ragged edge cases (K8
+   also with rows that do not follow each other, planes out of range, more
+   than 32 arcs on one plane, no arcs and hub rows);
 6. LM serving path — minitron-8b at full width and depth (32 layers,
    d_model 4,096, 32 heads, 8 KV heads, d_ff 16,384, vocabulary 256,000,
    bf16, 7.73 B random parameters from a ``torch.Generator``) serves four
@@ -89,6 +94,7 @@ before the last line.  Without a CUDA card, or without the repository's
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1215,22 +1221,104 @@ def csr_step_case(x, n_p, deg_cap) -> dict:
     return case
 
 
-def csr_sweep_case(up, n_t, arc_row, masks) -> dict:
-    """K8 against its plain version on one target's CSR planes."""
+def csr_sweep_check(seg_start, seg_len, indices, arc_row, masks, deg_cap) -> dict:
+    """K8 against its plain version on one set of sweep inputs (device
+    tensors)."""
     import torch
 
     from repro_torch.kernels import domain_ac
     from repro_torch.kernels import ref as kref
 
-    seg_start = up.indptr[:, :-1].contiguous()
-    seg_len = (up.indptr[:, 1:] - up.indptr[:, :-1]).contiguous()
-    args = (seg_start, seg_len, up.indices, arc_row, masks)
-    k = domain_ac.csr_arc_sweep_cuda(*args, deg_cap=up.deg_cap)
-    p = kref.csr_arc_sweep_ref(*args, deg_cap=up.deg_cap)
+    args = (seg_start, seg_len, indices, arc_row, masks)
+    k = domain_ac.csr_arc_sweep_cuda(*args, deg_cap=deg_cap)
+    p = kref.csr_arc_sweep_ref(*args, deg_cap=deg_cap)
     torch.cuda.synchronize()
-    return dict(n_planes=seg_start.shape[0], n_t=n_t, w=masks.shape[1], n_arcs=masks.shape[0],
-                deg_cap=up.deg_cap, supported=int(k.sum()),
+    return dict(n_planes=seg_start.shape[0], n_t=seg_start.shape[1], w=masks.shape[1],
+                n_arcs=masks.shape[0], deg_cap=deg_cap, supported=int(k.sum()),
                 csr_arc_sweep_mismatches=int((k != p).sum()), csr_arc_sweep_err=max_abs_err(k, p))
+
+
+def csr_bounds(up):
+    """``(seg_start, seg_len)`` of an uploaded CSR target's planes."""
+    return up.indptr[:, :-1].contiguous(), (up.indptr[:, 1:] - up.indptr[:, :-1]).contiguous()
+
+
+def csr_sweep_case(up, n_t, arc_row, masks) -> dict:
+    """K8 against its plain version on one target's CSR planes."""
+    return csr_sweep_check(*csr_bounds(up), up.indices, arc_row, masks, up.deg_cap)
+
+
+# K8 edge cases beyond the uploaded targets': (layout, n_planes, n_t, w,
+# n_arcs, deg_cap, planes of the arcs).  Layouts: "recipe" lays rows out plane
+# after plane with a sentinel tail (tests/test_torch_csr.py's
+# csr_sweep_inputs); "shuffled" the same rows in another order; "overlap"
+# random starts, negative ones and rows past the end of indices among them.
+# Rows of every layout include some longer than csr_arc_sweep.cuh's kHubLen
+# (walked by the whole block), one longer than deg_cap; arcs name planes
+# in range ("in"), out of range ("out": negative and >= n_planes) or all
+# one plane ("one", more than 32 arcs on it); n_t is never a multiple of the
+# 256-row tile.
+CSR_SWEEP_EDGES = [("recipe", 2, 1000, 33, 40, 24, "in"),
+                   ("shuffled", 3, 777, 40, 70, 24, "one"),
+                   ("overlap", 3, 1000, 40, 70, 700, "out"),
+                   ("overlap", 2, 777, 1034, 100, 2000, "in"),
+                   ("recipe", 2, 300, 5, 0, 8, "in"),
+                   ("shuffled", 2, 2000, 1035, 48, 3000, "one")]
+
+
+def csr_sweep_edge_inputs(rng, layout, n_planes, n_t, w, n_arcs, deg_cap, arcs):
+    """Numpy inputs of one :data:`CSR_SWEEP_EDGES` case: ``(seg_start,
+    seg_len, indices, arc_row, masks)``, masks random (about one bit in 8
+    set).  Entries are drawn from ``[-3, w · 32 + 20)`` (some negative, some
+    past the domain bitmap) and the indices end in a sentinel tail
+    (``CSR_SENTINEL``)."""
+    import numpy as np
+
+    lens = rng.integers(0, min(deg_cap, 40) + 1, (n_planes, n_t))
+    lens[:, 3::97] = rng.integers(513, max(514, min(deg_cap, 1900)), lens[:, 3::97].shape)
+    lens[0, 5] = deg_cap + 7  # longer than the walk cap
+    total = int(lens.sum())
+    indices = np.full(total + deg_cap + 7, 2**31 - 1, np.int32)  # CSR_SENTINEL
+    indices[:total] = rng.integers(-3, w * 32 + 20, total)
+    starts = np.concatenate([[0], np.cumsum(lens.ravel())[:-1]]).reshape(n_planes, n_t)
+    if layout == "shuffled":
+        starts = starts.ravel()[rng.permutation(starts.size)].reshape(n_planes, n_t)
+        lens = lens.ravel()[rng.permutation(lens.size)].reshape(n_planes, n_t)
+    elif layout == "overlap":
+        starts = rng.integers(-50, indices.size + 50, (n_planes, n_t))
+    if arcs == "one":
+        arc_row = np.full(n_arcs, n_planes - 1)
+    elif arcs == "out":
+        arc_row = rng.integers(-3, n_planes + 3, n_arcs)
+    else:
+        arc_row = rng.integers(0, n_planes, n_arcs)
+    masks = (rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32)
+             & rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32)
+             & rng.integers(0, 2**32, (n_arcs, w), dtype=np.uint32))
+    return (starts.astype(np.int32), lens.astype(np.int32), indices, arc_row.astype(np.int32),
+            masks)
+
+
+def check_csr_sweep_edges(device) -> list:
+    """K8 at every :data:`CSR_SWEEP_EDGES` case with random, all-zero and
+    all-ones masks, and with a walk cap of 1."""
+    import numpy as np
+    import torch
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+    rng = np.random.default_rng(21)
+    cases = []
+    for edge in CSR_SWEEP_EDGES:
+        seg_start, seg_len, indices, arc_row, masks = csr_sweep_edge_inputs(rng, *edge)
+        args = [dev(a) for a in (seg_start, seg_len, indices, arc_row)]
+        for fill in (None, 0, 0xFFFFFFFF):
+            m = masks if fill is None else np.full_like(masks, fill)
+            for cap in (edge[5], 1):
+                cases.append(dict(csr_sweep_check(*args, dev(m), cap), layout=edge[0],
+                                  arcs=edge[6], mask="random" if fill is None else hex(fill)))
+    return cases
 
 
 def random_csr_upload(rng, n_planes, n_t, deg_cap, device, dup=True):
@@ -1372,7 +1460,22 @@ def check_sparse_kernels_edges(device) -> list:
         0, 2**32, (n_arcs, 2), dtype=np.uint32)
     cases.append(dict(csr_sweep_case(up, 40, arc_row, torch.from_numpy(m.view(np.int32)).to(
         device)), mask="many arcs"))
-    return cases
+    return cases + check_csr_sweep_edges(device)
+
+
+def hub_target() -> tuple:
+    """Target B and its pattern: ``bench_hubheavy``'s power-law target
+    (:data:`HUB`) and the pattern ``extract_pattern`` grows from its
+    80th-highest-degree node (6 nodes asked for)."""
+    import numpy as np
+
+    from repro_torch.data import graphgen
+
+    hub = graphgen.power_law_graph(HUB["n"], avg_deg=HUB["avg_deg"], alpha=HUB["alpha"],
+                                   n_labels=HUB["n_labels"], seed=HUB["seed"])
+    hdeg = hub.out_degrees() + hub.in_degrees()
+    return hub, graphgen.extract_pattern(hub, 6, seed=HUB["seed"],
+                                         start=int(np.argsort(hdeg)[-80]))
 
 
 def run_sparse_path(device):
@@ -1387,7 +1490,7 @@ def run_sparse_path(device):
     from repro_torch.data import graphgen
 
     launches = {"prepare": {}, "run_bucketed": {}, "run_flat": {}, "prepare_batch": {},
-                "stream": {}, "hub_bucketed": {}, "hub_flat": {}}
+                "stream": {}, "hub_bucketed": {}, "hub_flat": {}, "hub_prepare": {}}
 
     # ---- target A: PDBSv1 scale ------------------------------------------
     t0 = time.perf_counter()
@@ -1513,20 +1616,13 @@ def run_sparse_path(device):
 
     # the full-width K8 check: the deepest acfc pattern's arcs and domains
     i = max(range(len(bqs)), key=lambda k: dom.domain_bucket(pats[k])[1])
-    arrs = dom.pattern_domain_arrays(pats[i])
-    n_arcs = int(arrs.arc_valid.sum())
+    arc_row, masks = sweep_arcs(pats[i], host[i].plan.domains.bits, index.n_edge_labels)
     sweep = dict(name=names[i], upload=kern._csr_upload(index.fingerprint, index.csr_planes),
-                 n_t=target.n,
-                 arc_row=(np.clip(arrs.arc_lab, 0, index.n_edge_labels - 1) * 2
-                          + arrs.arc_dir)[:n_arcs].astype(np.int32),
-                 masks=np.ascontiguousarray(host[i].plan.domains.bits[arrs.arc_q[:n_arcs]]))
+                 n_t=target.n, arc_row=arc_row, masks=masks)
 
     # ---- target B: hub-heavy ---------------------------------------------
     t0 = time.perf_counter()
-    hub = graphgen.power_law_graph(HUB["n"], avg_deg=HUB["avg_deg"], alpha=HUB["alpha"],
-                                   n_labels=HUB["n_labels"], seed=HUB["seed"])
-    hdeg = hub.out_degrees() + hub.in_degrees()
-    hpat = graphgen.extract_pattern(hub, 6, seed=HUB["seed"], start=int(np.argsort(hdeg)[-80]))
+    hub, hpat = hub_target()
     hindex = SubgraphIndex.build(hub, sparse=True)
     hplanes = hindex.csr_planes()
     hrow = np.diff(hplanes.indptr, axis=1)
@@ -1558,9 +1654,48 @@ def run_sparse_path(device):
     emit(dict(phase="sparse_oracle", target="B", agree=True, matches=ref.matches,
               states=ref.states,
               flat_over_bucketed=hres["hub_flat"].match_s / hres["hub_bucketed"].match_s))
+
+    # target B's CSR fixpoint under ri-ds-si-acfc: through K8 and plain
+    preps = {}
+    for label, kw in (("kernels", dict(use_pallas=True)), ("plain", {})):
+        enum = session(hindex, SPARSE_VARIANT, step_backend="csr", **kw)
+        preps[label], counts = _launched(lambda: enum.prepare(hpat, name="hub/acfc"))
+        if label == "kernels":
+            launches["hub_prepare"] = counts
+    if not launches["hub_prepare"]["csr_arc_sweep"]:
+        raise AssertionError(f"target B's acfc prepare launched {launches['hub_prepare']}")
+    got, want = preps["kernels"], preps["plain"]
+    if got.plan.satisfiable != want.plan.satisfiable \
+            or not np.array_equal(got.plan.dom_bits, want.plan.dom_bits):
+        raise AssertionError("target B: the K8 fixpoint's domains != the plain fixpoint's")
+    emit(dict(phase="sparse_prepare", target="B", variant=SPARSE_VARIANT,
+              launches=launches["hub_prepare"], satisfiable=bool(got.plan.satisfiable),
+              prepare_s=got.prepare_s, plain_prepare_s=want.prepare_s,
+              domain_sizes=[int(np.unpackbits(r.view(np.uint8)).sum())
+                            for r in want.plan.domains.bits]))
+    hub_row, hub_final = sweep_arcs(hpat, want.plan.domains.bits, hindex.n_edge_labels)
+    _, hub_initial = sweep_arcs(hpat, dom.initial_domains_sparse(hpat, hub, hindex.w),
+                                hindex.n_edge_labels)
     return launches, dict(
         A=kern._csr_upload(index.fingerprint, index.csr_planes), A_w=index.w,
-        B=extend.upload_csr(hplanes, device), B_w=hindex.w, sweep=sweep)
+        B=extend.upload_csr(hplanes, device), B_w=hindex.w, sweep=sweep,
+        hub_sweeps=dict(arc_row=hub_row, final=hub_final, initial=hub_initial,
+                        zero=np.zeros_like(hub_final)))
+
+
+def sweep_arcs(pattern, bits, n_elab) -> tuple:
+    """One sweep's K8 inputs for ``pattern``: each arc's plane
+    (``domains._device_fixpoint``'s ``arc_row``) and the domain ``bits`` of
+    its other end as its mask, numpy ``(arc_row [n_arcs], masks [n_arcs,
+    w])``."""
+    import numpy as np
+
+    from repro_torch.core import domains as dom
+
+    arrs = dom.pattern_domain_arrays(pattern)
+    n_arcs = int(arrs.arc_valid.sum())
+    arc_row = (np.clip(arrs.arc_lab, 0, n_elab - 1) * 2 + arrs.arc_dir)[:n_arcs]
+    return arc_row.astype(np.int32), np.ascontiguousarray(bits[arrs.arc_q[:n_arcs]])
 
 
 def needed_entries(up, arc_row, masks) -> tuple:
@@ -1592,16 +1727,67 @@ def needed_entries(up, arc_row, masks) -> tuple:
     return sum(int(n.sum()) for n in furthest.values()), per_arc
 
 
+def csr_sweep_bytes(up, arc_row, masks) -> dict:
+    """What K8 must move on one target's CSR planes for these arcs: each
+    named plane's bounds and the entries the furthest-reading arc on it
+    needs, read once, the masks and ``arc_row``, the flags (``bytes``); the
+    same with every arc re-reading its plane (``bytes_plane_per_arc``); and,
+    beside them, the mask table's bytes, written once and read once
+    (``table_bytes``)."""
+    import torch
+
+    n_arcs, w = masks.shape
+    n_t = up.indptr.shape[1] - 1
+    once, per_arc = needed_entries(up, arc_row, masks)
+    planes = len(set(arc_row.tolist()))
+    arcs_bytes = words_bytes(n_arcs * (w + 1) + n_arcs * n_t)  # masks, arc_row, flags
+    n_planes = up.indptr.shape[0]
+    keys = arc_row.clamp(-1, n_planes).masked_fill(arc_row < 0, n_planes).long()
+    groups = sum(int(((torch.bincount(keys[c:c + 64]) + 31) // 32).sum())  # per 64-arc chunk,
+                 for c in range(0, n_arcs, 64))  # as csr_arc_sweep.cuh groups them
+    return dict(bytes=words_bytes(planes * 2 * n_t + once) + arcs_bytes,
+                bytes_plane_per_arc=words_bytes(n_arcs * 2 * n_t + per_arc) + arcs_bytes,
+                table_bytes=2 * words_bytes(groups * 32 * w), ops=2 * per_arc,
+                entries_read_once=once, entries_per_arc=per_arc, planes=planes, arcs=n_arcs)
+
+
+def csr_sweep_timing(up, arc_row, masks, plain=False) -> dict:
+    """K8 on one target's CSR planes, timed with a warm and a flushed L2
+    (the plain version too if ``plain``), beside :func:`csr_sweep_bytes`."""
+    from repro_torch.kernels import domain_ac
+    from repro_torch.kernels import ref as kref
+
+    args = (*csr_bounds(up), up.indices, arc_row, masks)
+
+    def k8():
+        return domain_ac.csr_arc_sweep_cuda(*args, deg_cap=up.deg_cap)
+
+    t = dict(ms=cuda_ms(k8), cold_ms=cuda_ms_cold(k8), **csr_sweep_bytes(up, arc_row, masks))
+    # the device kernels of 20 calls as the profiler traces them: launches and
+    # mean device time of each
+    prof = profile_call(lambda: [k8() for _ in range(20)])
+    t["kernel_trace"] = {re.search(r"csr_sweep::(\w+)", e["name"]).group(1):
+                         dict(launches=e["count"], mean_us=e["device_us"] / e["count"])
+                         for e in prof.get("top", []) if "csr_sweep::" in e["name"]}
+    if plain:
+        t["plain_ms"] = cuda_ms(lambda: kref.csr_arc_sweep_ref(*args, deg_cap=up.deg_cap),
+                                reps=10)
+        t["bound_plane_per_arc_ms"] = t["bytes_plane_per_arc"] / HBM_BYTES_PER_S * 1e3
+        t["ptxas"] = ptxas_lines("csr_arc_sweep")
+    return t
+
+
 def check_sparse_kernels_full(device, fw) -> tuple:
     """K6 and K7 at b = 4,096, w = 1,034 on target A's and (b = 512, two
     real parents) target B's CSR planes; K8 on target A's planes with one
-    pattern's real domain masks (from the phase-5 fixpoint).  0 mismatched
-    words required; timed as the other kernels are."""
+    pattern's real domain masks (from the phase-5 fixpoint) and on target
+    B's with the hub pattern's arcs (its final and its initial domains, and
+    all-zero masks).  0 mismatched words required; timed as the other
+    kernels are."""
     import numpy as np
     import torch
 
     from repro_torch.kernels import csr_extend as ce
-    from repro_torch.kernels import domain_ac
     from repro_torch.kernels import ref as kref
 
     rng = np.random.default_rng(14)
@@ -1634,27 +1820,22 @@ def check_sparse_kernels_full(device, fw) -> tuple:
             xb, n_pb, fw["B"].deg_cap, pivot="first")
 
     sw = fw["sweep"]
-    up = sw["upload"]
     arc_row = torch.from_numpy(sw["arc_row"]).to(device)
     masks = torch.from_numpy(sw["masks"].view(np.int32)).to(device)
-    cases.append(dict(csr_sweep_case(up, sw["n_t"], arc_row, masks), target="A",
+    cases.append(dict(csr_sweep_case(sw["upload"], sw["n_t"], arc_row, masks), target="A",
                       pattern=sw["name"]))
-    n_arcs, mw = masks.shape
-    n_t = sw["n_t"]
-    seg_start = up.indptr[:, :-1].contiguous()
-    seg_len = (up.indptr[:, 1:] - up.indptr[:, :-1]).contiguous()
-    sargs = (seg_start, seg_len, up.indices, arc_row, masks)
-    once, per_arc = needed_entries(up, arc_row, masks)
-    planes = len(set(sw["arc_row"].tolist()))
-    arcs_bytes = words_bytes(n_arcs * (mw + 1) + n_arcs * n_t)  # masks, arc_row, flags
-    timing["csr_arc_sweep"] = dict(
-        ms=cuda_ms(lambda: domain_ac.csr_arc_sweep_cuda(*sargs, deg_cap=up.deg_cap)),
-        plain_ms=cuda_ms(lambda: kref.csr_arc_sweep_ref(*sargs, deg_cap=up.deg_cap), reps=10),
-        bytes=words_bytes(planes * 2 * n_t + once) + arcs_bytes,
-        bytes_plane_per_arc=words_bytes(n_arcs * 2 * n_t + per_arc) + arcs_bytes,
-        ops=2 * per_arc, entries_read_once=once, entries_per_arc=per_arc, planes=planes)
-    timing["csr_arc_sweep"]["bound_plane_per_arc_ms"] = (
-        timing["csr_arc_sweep"]["bytes_plane_per_arc"] / HBM_BYTES_PER_S * 1e3)
+    timing["csr_arc_sweep"] = csr_sweep_timing(sw["upload"], arc_row, masks, plain=True)
+    # target B: the hub pattern's arcs with its final acfc domains, its
+    # initial label + degree domains, and no domain bit at all
+    hs = fw["hub_sweeps"]
+    hub_row = torch.from_numpy(hs["arc_row"]).to(device)
+    for name in ("final", "initial", "zero"):
+        hub_masks = torch.from_numpy(hs[name].view(np.int32)).to(device)
+        cases.append(dict(csr_sweep_case(fw["B"], fw["B"].indptr.shape[1] - 1, hub_row,
+                                         hub_masks), target="B", masks=name))
+        tb = csr_sweep_timing(fw["B"], hub_row, hub_masks)
+        tb["bound_ms"] = tb["bytes"] / HBM_BYTES_PER_S * 1e3
+        timing["csr_arc_sweep"][f"target_b_{name}"] = tb
     return cases, timing
 
 
@@ -2080,6 +2261,7 @@ def main() -> int:
                                     replaces="src/repro/kernels/csr_extend.py:319",
                                     launches=phase5["csr_extend_bucketed"]),
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
+                              header="src/repro_torch/csrc/csr_arc_sweep.cuh",
                               replaces="src/repro/kernels/domain_ac.py:165",
                               launches=phase5["csr_arc_sweep"]),
         "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
@@ -2099,7 +2281,8 @@ def main() -> int:
         extra = {k: v for k, v in t.items()
                  if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_",
                                   "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes",
-                                  "cold_", "real_step_", "valid_", "lanes_"))}
+                                  "cold_", "real_step_", "valid_", "lanes_", "table_",
+                                  "kernel_trace"))}
         if "header" in m:
             extra["header"] = m["header"]
         kernels.append(dict(

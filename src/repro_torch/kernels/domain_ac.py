@@ -30,18 +30,29 @@ slots, and tests them against the masks of the pairs on its plane, staged
 by memory: each named plane read once, the masks, the ``[n_pairs, n_t]``
 flags.
 
-:func:`csr_arc_sweep_cuda` (K8, ``csrc/csr_arc_sweep.cu``) is the same
-sweep over CSR planes: ``out[a, t] = any(u ∈ row(arc_row[a],
+:func:`csr_arc_sweep_cuda` (K8, ``csrc/csr_arc_sweep.cu`` + ``csrc/csr_arc_sweep.cuh``)
+is the same sweep over CSR planes: ``out[a, t] = any(u ∈ row(arc_row[a],
 t)[:min(len, deg_cap)] : bit u ∈ masks[a])``.  It replaces
-``repro/kernels/domain_ac.py::csr_arc_sweep`` (body
-``_csr_sweep_kernel``), whose ``(arc, row tile)`` grid chose the plane's
-segment bounds through a scalar-prefetched ``arc_row``.  Here the grid is
-``(arc, row tile)``, arcs along grid x so one launch takes any number of
-them: a block stages its arc's mask in shared memory and each thread walks
-one row to its first hit.  The sparse fixpoint launches it once per AC
+``repro/kernels/domain_ac.py::csr_arc_sweep`` (body ``_csr_sweep_kernel``),
+whose ``(arc, row tile)`` grid chose the plane's segment bounds through a
+scalar-prefetched ``arc_row`` and tested each row against one arc.  Here the
+arcs are grouped by plane on the card: each chunk of :data:`ARC_CHUNK` arcs
+forms groups of up to :data:`GROUP` arcs of one plane, in order of
+appearance, and every block finds its own group from its chunk's planes, so
+the grids are sized on the host (:func:`csr_sweep_layout`) and nothing is
+read back.  One call is two kernels: the first transposes each group's masks
+by warp ballots into a table ``T[g, u]``, whose bit ``j`` is bit ``u`` of
+the group's ``j``-th mask; the second, launched as a programmatic dependent
+of the first, gives a block one (group, tile of :data:`SWEEP_ROWS` rows): it
+reads the tile's bounds and first entries while the table is built, then
+tests each entry against all of the group's arcs with one lookup of ``T``.
+A warp walks its 32 rows' capped entries as one run (a row stops being read
+once every arc of the group has support); rows longer than :data:`HUB_LEN`
+are walked by the whole block.  The sparse fixpoint calls it once per AC
 sweep over the arcs of every live pattern.  Bound by memory: each named
 plane's bounds and entries read once (as far as the furthest-reading arc on
-it needs), the masks, and the ``[n_arcs, n_t]`` flags.
+it needs), the masks, and the ``[n_arcs, n_t]`` flags; the table adds ``32 ·
+w`` words per group, written once and read from L2.
 
 The plain versions are `repro_torch.kernels.ref.adjacency_any_ref`,
 `adjacency_any_pairs_ref`, `arc_any_sweep_ref` and `csr_arc_sweep_ref`;
@@ -66,8 +77,9 @@ from repro_torch.kernels.ref import (  # noqa: F401  (the plain versions)
 # since ops.reset_launch_counts()
 launches = {"adjacency_any": 0, "arc_any_sweep": 0, "csr_arc_sweep": 0}
 
-# a mask lives in shared memory (K8: one per block; K4 / K5: at least one
-# per chunk), which a block gets 48 KB of by default
+# K4 / K5 stage at least one mask per chunk in shared memory, which a block
+# gets 48 KB of by default (K8 keeps its masks in a table in global memory and
+# its shared memory does not grow with w, so it takes any width)
 MAX_W = 48 * 1024 // 4
 
 # csrc/arc_any.cuh's block and the layout rule of its shared memory
@@ -81,7 +93,20 @@ STOP_EVERY = 8  # kStopEvery: words per test batch; a row's slots come in batche
 SMEM_TARGET = 110 * 1024  # two blocks per SM
 
 _ARC_ANY_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_CSR_SWEEP_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_CSR_SWEEP_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p])
+
+# csrc/csr_arc_sweep.cuh's blocks and the layout rule of its grids and table
+# (K8); these are its constants, read from the header
+_KS = _build.header_constants((_build.CSRC / "csr_arc_sweep.cuh").read_text())
+SWEEP_WARPS = _KS["kWarps"]  # warps of a block (table and sweep)
+SWEEP_ROWS = _KS["kRows"]  # rows per tile, one per thread
+SWEEP_UNROLL = _KS["kUnroll"]  # entries per lane in flight in a warp walk
+HUB_LEN = _KS["kHubLen"]  # a row with more capped entries is walked by the whole block
+HUB_UNROLL = _KS["kHubUnroll"]  # entries per thread in flight in a block walk
+GROUP = _KS["kGroup"]  # arcs per group, the bits of a table word
+ARC_CHUNK = _KS["kChunk"]  # arcs whose groups one block works out (one thread each)
+TABLE_WORDS = _KS["kTableWords"]  # mask words per table warp
 
 
 class ArcAnyLayout(NamedTuple):
@@ -110,6 +135,37 @@ def arc_any_layout(n_planes: int, n_t: int, w: int, n_pairs: int) -> ArcAnyLayou
     per_mask = arc_any_smem(rows, slots, 1, w) - fixed
     chunk = max(1, min(n_pairs, CHUNK_CAP, (SMEM_TARGET - fixed) // per_mask))
     return ArcAnyLayout(rows, slots, chunk, arc_any_smem(rows, slots, chunk, w))
+
+
+class CsrSweepLayout(NamedTuple):
+    slots: int  # group slots: ARC_CHUNK arcs form at most slots_per_chunk groups
+    tiles: int  # row tiles of SWEEP_ROWS rows
+    table_blocks: int  # slots · word blocks of SWEEP_WARPS · TABLE_WORDS mask words
+    sweep_blocks: int  # slots · tiles, one per (group, row tile)
+    table_words: int  # the table, slots · GROUP · w int32 words
+    smem: int  # static shared memory of a sweep block, bytes (any w)
+
+
+def slots_per_chunk(n_planes: int, n_arcs: int) -> int:
+    """The most groups ``m = min(ARC_CHUNK, n_arcs)`` arcs can form: a key (a
+    plane, or "no plane" for arcs outside ``[0, n_planes)``) with ``n`` of
+    them forms ``ceil(n / GROUP)``, so at most ``(m + (GROUP - 1) ·
+    min(n_planes + 1, m)) // GROUP``."""
+    m = min(ARC_CHUNK, n_arcs)
+    return (m + (GROUP - 1) * min(n_planes + 1, m)) // GROUP
+
+
+def csr_sweep_layout(n_planes: int, n_t: int, w: int, n_arcs: int) -> CsrSweepLayout:
+    """The grids and table of one K8 call, as the header's ``csr_sweep::launch``
+    sizes them from the same constants: every chunk of :data:`ARC_CHUNK` arcs has
+    :func:`slots_per_chunk` group slots whatever its arcs' planes, so nothing
+    is read back to size the grids."""
+    slots = -(-n_arcs // ARC_CHUNK) * slots_per_chunk(n_planes, n_arcs)
+    tiles = -(-n_t // SWEEP_ROWS)
+    return CsrSweepLayout(
+        slots=slots, tiles=tiles, table_blocks=slots * -(-w // (SWEEP_WARPS * TABLE_WORDS)),
+        sweep_blocks=slots * tiles, table_words=slots * GROUP * w,
+        smem=4 * (4 * SWEEP_ROWS + ARC_CHUNK + GROUP + 7))
 
 
 def _check_w(w: int) -> None:
@@ -188,7 +244,8 @@ def csr_arc_sweep_cuda(seg_start: torch.Tensor, seg_len: torch.Tensor, indices: 
     """Launch K8 on the current stream: ``[n_planes, n_t]`` segment bounds,
     ``[n_idx]`` indices, ``[n_arcs]`` planes and ``[n_arcs, w]`` masks ->
     ``[n_arcs, n_t]`` int32.  An ``arc_row`` outside ``[0, n_planes)``
-    supports no node."""
+    supports no node.  One call is two kernels on the stream (the mask table,
+    then the sweep; :func:`csr_sweep_layout`) and counts one launch."""
     _build.check_cuda_args((seg_start, seg_len, indices, arc_row, masks),
                            ("seg_start", "seg_len", "indices", "arc_row", "masks"))
     if seg_start.dim() != 2 or seg_len.shape != seg_start.shape or indices.dim() != 1 \
@@ -199,16 +256,19 @@ def csr_arc_sweep_cuda(seg_start: torch.Tensor, seg_len: torch.Tensor, indices: 
                          "[n_idx] / [n_arcs] / [n_arcs, w]")
     n_planes, n_t = seg_start.shape
     n_arcs, w = masks.shape
-    _check_w(w)
-    if n_t > 65535 * 256:
-        raise ValueError(f"n_t = {n_t} exceeds one launch's grid (65,535 row tiles of 256)")
+    lay = csr_sweep_layout(n_planes, n_t, w, n_arcs)
+    if max(lay.table_blocks, lay.sweep_blocks) > 2**31 - 1:
+        raise ValueError(f"{n_arcs} arcs over n_t = {n_t} at w = {w} exceed one launch's grid "
+                         "(2^31 - 1 blocks of (group, mask words) or (group, row tile))")
     out = torch.empty((n_arcs, n_t), dtype=torch.int32, device=masks.device)
     if n_arcs == 0 or n_t == 0:
         return out
+    table = torch.empty(lay.table_words, dtype=torch.int32, device=masks.device)
     fn = _build.launcher("csr_arc_sweep", _CSR_SWEEP_ARGTYPES)
     rc = fn(seg_start.data_ptr(), seg_len.data_ptr(), indices.data_ptr(), arc_row.data_ptr(),
-            masks.data_ptr(), out.data_ptr(), n_planes, n_t, indices.shape[0], w, n_arcs,
-            int(deg_cap), torch.cuda.current_stream(masks.device).cuda_stream)
+            masks.data_ptr(), out.data_ptr(), table.data_ptr(), lay.table_words, n_planes, n_t,
+            indices.shape[0], w, n_arcs, int(deg_cap),
+            torch.cuda.current_stream(masks.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csr_arc_sweep launch failed with CUDA error {rc}")
     launches["csr_arc_sweep"] += 1

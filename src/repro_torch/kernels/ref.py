@@ -308,10 +308,15 @@ def csr_arc_sweep_ref(
     int32 (``repro``'s ``csr_arc_sweep_ref``).  Bit-tests the whole flat
     ``indices`` per arc and reduces each row by a prefix-sum difference over
     ``[seg_start, seg_start + len)``; entries outside ``[0, w · 32)`` (the
-    sentinel tail) support nothing.  ``arcs_per_pass`` arcs at a time bound
-    the ``[arcs, n_idx]`` transient."""
+    sentinel tail) and arcs whose plane lies outside ``[0, n_planes)``
+    support nothing.  ``arcs_per_pass`` arcs at a time bound the ``[arcs,
+    n_idx]`` transient."""
     n_idx = indices.shape[0]
     n_arcs, w = masks.shape
+    n_planes = seg_start.shape[0]
+    if n_planes == 0 or w == 0:  # no plane or no node: nothing is supported
+        return torch.zeros((n_arcs, seg_start.shape[1]), dtype=torch.int32, device=masks.device)
+    on_plane = (arc_row >= 0) & (arc_row < n_planes)
     sl = seg_len.clamp(max=deg_cap)
     u_c = indices.clamp(0, w * WORD_BITS - 1)
     word = (u_c // WORD_BITS).long()
@@ -320,14 +325,14 @@ def csr_arc_sweep_ref(
     out = torch.empty((n_arcs, seg_start.shape[1]), dtype=torch.int32, device=masks.device)
     for a0 in range(0, n_arcs, arcs_per_pass):
         m = masks[a0:a0 + arcs_per_pass]
-        r = arc_row[a0:a0 + arcs_per_pass].long()
+        r = arc_row[a0:a0 + arcs_per_pass].long().clamp(0, n_planes - 1)
         hits = node_ok & (((m[:, word] >> bit) & 1) != 0)  # [arcs, n_idx]
         c = torch.zeros((m.shape[0], n_idx + 1), dtype=torch.int32, device=masks.device)
         c[:, 1:] = torch.cumsum(hits, dim=1, dtype=torch.int32)
         lo = seg_start[r].clamp(0, n_idx)
         hi = torch.maximum(torch.minimum(seg_start[r] + sl[r], torch.full_like(lo, n_idx)), lo)
-        out[a0:a0 + arcs_per_pass] = (c.gather(1, hi.long()) - c.gather(1, lo.long()) > 0).to(
-            torch.int32)
+        out[a0:a0 + arcs_per_pass] = ((c.gather(1, hi.long()) - c.gather(1, lo.long()) > 0)
+                                      & on_plane[a0:a0 + arcs_per_pass, None]).to(torch.int32)
     return out
 
 
