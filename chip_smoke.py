@@ -27,7 +27,13 @@ Phases, each printed as one JSON line:
    the kernel launches per engine step, and one more records the arguments
    of its K1 (``pallas``) or K2 (``jnp+use_pallas``) call with the most
    valid lanes: K1 and K2 are checked on them (0 mismatched words) and
-   timed, warm and cold, beside their bound and the plain version;
+   timed, warm and cold, beside their bound and the plain version.  The
+   deepest query is also prepared with ``seed_edge="auto"`` and run under
+   ``root_seeding="edge"`` through K1 and through K2: both must launch
+   their kernel and give the vertex-seeded run's matches and each other's
+   counters; it prints the root frontier under each seeding (|dom[0]|
+   roots against the seed entries), the seed edge, the host seconds of
+   ``root_seed_entries`` and each run's query time;
 4. batch path — the same target with 24 patterns (8 each of 8, 16 and 24
    edges), under ``ri-ds-si-fc`` and ``ri-ds-si-acfc``:
    ``Enumerator.prepare_batch`` with the device fixpoint through K5
@@ -60,7 +66,12 @@ Phases, each printed as one JSON line:
    Target B, hub-heavy (``power_law_graph``: 33,067 nodes, maximum degree
    16,373), runs one pattern under ``ri`` through K6 and K7, which must
    agree with each other and ``ref_enumerate``; each one's query time is
-   printed.  The same pattern is prepared under ``ri-ds-si-acfc`` on target
+   printed.  The same query prepared with ``seed_edge="auto"`` runs under
+   ``root_seeding="edge"`` through K6 and K7, which must launch, agree on
+   every counter and give the vertex-seeded runs' and ``ref_enumerate``'s
+   matches; it prints both root frontiers, the seed edge, the host
+   seconds of ``root_seed_entries`` and each seeding's query time.  The
+   same pattern is prepared under ``ri-ds-si-acfc`` on target
    B's CSR index through K8, whose domains must equal the plain fixpoint's.
    K6, K7 and K8 are checked (0 mismatched words) and timed at full width on
    both targets' CSR arrays (K8 on target B with the hub pattern's final and
@@ -633,6 +644,60 @@ def check_real_steps(steps: dict) -> tuple:
     return cases, timing
 
 
+def root_frontier(vertex_plan, edge_plan, cfg) -> dict:
+    """The root frontier of a query under each seeding: the vertex split's
+    roots (|dom[0]|) against the edge seeding's depth-1 entries, the seed
+    edge, whether the entries fit the stacks (else the engine falls back to
+    the masked vertex split), and the host seconds of building them."""
+    import numpy as np
+
+    from repro_torch.core import frontier
+
+    t0 = time.perf_counter()
+    seeds = frontier.root_seed_entries(edge_plan)[0].shape[0]
+    seed_s = time.perf_counter() - t0
+    per_worker = -(-seeds // cfg.n_workers)
+    return dict(seed_edge=list(edge_plan.seed_edge), vertex_roots=int(
+        np.unpackbits(vertex_plan.dom_bits[0].view(np.uint8)).sum()), edge_seeds=int(seeds),
+        seeded=per_worker <= cfg.resolved_stack_cap(edge_plan.p_pad) - 1,
+        root_seed_entries_s=seed_s)
+
+
+def run_edge_seeded_dense(device, index, inst, vertex) -> dict:
+    """Phase 3's edge-seeded query: ``inst``'s pattern prepared with
+    ``seed_edge="auto"`` and run under ``root_seeding="edge"`` through K1
+    (``pallas``) and K2 (``jnp`` + ``use_pallas``); ``vertex`` is its
+    vertex-seeded ``pallas`` run.  Returns each run's launch counts."""
+    from repro_torch.core import EngineConfig, Enumerator
+
+    launches, runs = {}, {}
+    for label, kw in (("edge pallas", dict(step_backend="pallas")),
+                      ("edge jnp+use_pallas", dict(step_backend="jnp", use_pallas=True))):
+        enum = Enumerator(index, config=EngineConfig(**ENGINE_KW, **kw, root_seeding="edge"),
+                          variant=VARIANT, device=device)
+        q = enum.prepare(inst.pattern, name=inst.name, seed_edge="auto")
+        enum.run(q)  # warm-up
+        runs[label], launches[label] = _launched(lambda: enum.run(q))
+    ms_k1, ms_k2 = runs["edge pallas"], runs["edge jnp+use_pallas"]
+    emit(dict(phase="main_path_edge_seeded", query=inst.name, launches=launches,
+              frontier=root_frontier(vertex.plan, ms_k1.plan, enum.config),
+              vertex_match_s=vertex.match_s, vertex_states=vertex.states,
+              vertex_steps=vertex.steps,
+              runs={label: dict(matches=ms.matches, states=ms.states, steps=ms.steps,
+                                steals=ms.steals, retries=ms.retries, match_s=ms.match_s)
+                    for label, ms in runs.items()}))
+    if not launches["edge pallas"]["extend_step"]:
+        raise AssertionError("the edge-seeded pallas run never launched extend_step")
+    if not launches["edge jnp+use_pallas"]["candidate_mask"]:
+        raise AssertionError("the edge-seeded jnp+use_pallas run never launched candidate_mask")
+    if _counters(ms_k1) != _counters(ms_k2):
+        raise AssertionError("edge-seeded K1 and K2 runs disagree")
+    if ms_k1.matches != vertex.matches:
+        raise AssertionError(f"{inst.name}: edge-seeded matches {ms_k1.matches} != "
+                             f"vertex-seeded {vertex.matches}")
+    return launches
+
+
 def run_main_path(device):
     from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
     from repro_torch.core.ref import ref_enumerate
@@ -702,6 +767,9 @@ def run_main_path(device):
         raise AssertionError("the pallas run never launched extend_step")
     if launches["jnp+use_pallas"]["candidate_mask"] == 0:
         raise AssertionError("the jnp+use_pallas run never launched candidate_mask")
+    deepest = max(range(len(patterns)), key=lambda i: results["pallas"][i].states)
+    launches.update(run_edge_seeded_dense(device, index, patterns[deepest],
+                                          results["pallas"][deepest]))
     return launches, real_steps
 
 
@@ -1490,7 +1558,8 @@ def run_sparse_path(device):
     from repro_torch.data import graphgen
 
     launches = {"prepare": {}, "run_bucketed": {}, "run_flat": {}, "prepare_batch": {},
-                "stream": {}, "hub_bucketed": {}, "hub_flat": {}, "hub_prepare": {}}
+                "stream": {}, "hub_bucketed": {}, "hub_flat": {}, "hub_edge_flat": {},
+                "hub_edge_bucketed": {}, "hub_prepare": {}}
 
     # ---- target A: PDBSv1 scale ------------------------------------------
     t0 = time.perf_counter()
@@ -1654,6 +1723,33 @@ def run_sparse_path(device):
     emit(dict(phase="sparse_oracle", target="B", agree=True, matches=ref.matches,
               states=ref.states,
               flat_over_bucketed=hres["hub_flat"].match_s / hres["hub_bucketed"].match_s))
+
+    # target B under edge seeding: the same query's rarest edge class as
+    # depth-1 root entries, through K6 and K7
+    eres = {}
+    for label, walk in (("hub_edge_flat", "flat"), ("hub_edge_bucketed", "bucketed")):
+        enum = session(hindex, HUB_VARIANT, step_backend="csr", use_pallas=True, csr_walk=walk,
+                       root_seeding="edge")
+        q = enum.prepare(hpat, name=f"hub-edge/{walk}", seed_edge="auto")
+        enum.run(q)  # warm-up
+        ms, counts = _launched(lambda: enum.run(q))
+        launches[label] = counts
+        eres[label] = ms
+        emit(dict(phase="sparse_path", target="B", path=f"edge {walk}", launches=counts,
+                  frontier=root_frontier(hres[f"hub_{walk}"].plan, q.plan, enum.config),
+                  matches=ms.matches, states=ms.states, steps=ms.steps, steals=ms.steals,
+                  steal_rounds=ms.steal_rounds, match_s=ms.match_s,
+                  vertex_match_s=hres[f"hub_{walk}"].match_s,
+                  states_per_s=ms.states / ms.match_s, profile=profile_query(enum, q)))
+    if not (launches["hub_edge_flat"]["csr_extend"]
+            and launches["hub_edge_bucketed"]["csr_extend_bucketed"]):
+        raise AssertionError(f"target B edge-seeded launches: {launches['hub_edge_flat']}, "
+                             f"{launches['hub_edge_bucketed']}")
+    if _counters(eres["hub_edge_flat"]) != _counters(eres["hub_edge_bucketed"]):
+        raise AssertionError("target B: the edge-seeded flat and bucketed walks disagree")
+    if eres["hub_edge_flat"].matches != ref.matches:
+        raise AssertionError(f"target B: edge-seeded matches {eres['hub_edge_flat'].matches} "
+                             f"!= vertex-seeded and ref_enumerate's {ref.matches}")
 
     # target B's CSR fixpoint under ri-ds-si-acfc: through K8 and plain
     preps = {}
@@ -2236,11 +2332,13 @@ def main() -> int:
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
                             replaces="src/repro/kernels/extend_step.py:125",
-                            launches=launches["pallas"]["extend_step"]),
+                            launches=launches["pallas"]["extend_step"]
+                            + launches["edge pallas"]["extend_step"]),
         "candidate_mask": dict(source="src/repro_torch/csrc/candidate_mask.cu",
                                header="src/repro_torch/csrc/dense_step.cuh",
                                replaces="src/repro/kernels/candidate_mask.py:62",
-                               launches=launches["jnp+use_pallas"]["candidate_mask"]),
+                               launches=launches["jnp+use_pallas"]["candidate_mask"]
+                               + launches["edge jnp+use_pallas"]["candidate_mask"]),
         "popcount_rows": dict(source="src/repro_torch/csrc/popcount_rows.cu",
                               replaces="src/repro/kernels/popcount_reduce.py:31",
                               launches=batch_launches["prepare_batch"]["popcount_rows"]),

@@ -77,8 +77,13 @@ class EngineConfig:
         recompute them from the mapping at expansion time (False).
       n_partitions, spill_cap: settings of the out-of-core backend
         (not ported yet; kept so configurations carry over).
-      root_seeding: ``"vertex"``, the paper's depth-0 root split; edge
-        seeding is refused until its slice is ported.
+      root_seeding: how worker stacks are first filled
+        (`repro_torch.core.frontier.init_state`): ``"vertex"``, the paper's
+        depth-0 root split over the first position's domain; ``"edge"``,
+        the plan's seed edge class (``plan.seed_edge``) as depth-1 entries,
+        which shrinks the root frontier of hub-heavy targets; ``"auto"``,
+        ``"edge"`` iff the plan carries a seed edge.  The match set is the
+        same under every mode.
       csr_walk: the CSR lead-segment schedule: ``"bucketed"`` (default)
         caps each lane's walk at its row's pow2 degree bucket, ``"flat"``
         walks the global ``deg_cap``.  Ignored by the dense backends.
@@ -111,12 +116,7 @@ class EngineConfig:
         valid = extend.STEP_BACKENDS + ("auto",)
         if self.step_backend not in valid:
             raise ValueError(f"step_backend={self.step_backend!r}; expected one of {valid}")
-        if self.root_seeding in ("edge", "auto"):
-            raise NotImplementedError(
-                f"root_seeding={self.root_seeding!r} is not ported yet: "
-                "ROADMAP Queue 1 item 8 (edge seeding)"
-            )
-        if self.root_seeding != "vertex":
+        if self.root_seeding not in ("vertex", "edge", "auto"):
             raise ValueError(
                 f"root_seeding={self.root_seeding!r}; expected 'vertex', 'edge', or 'auto'"
             )

@@ -44,7 +44,9 @@ import torch
 
 from repro_torch.core import frontier
 from repro_torch.core.frontier import EngineState
-from repro_torch.core.graph import WORD_BITS, CsrPlanes, csr_planes_from_bitmaps, deg_bucket_caps
+from repro_torch.core.graph import (
+    WORD_BITS, CsrPlanes, bitmap_from_indices, csr_planes_from_bitmaps, deg_bucket_caps,
+)
 from repro_torch.core.plan import SearchPlan
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -355,6 +357,39 @@ def compute_cand(
         t = torch.where(real, map_.gather(1, pp[:, j:j + 1].clamp_min(0).long())[:, 0], 0)
         row = plan.adj_bits[pl[:, j].long(), pd[:, j].long(), t.clamp(0, n_t - 1).long()]
         cand = torch.where(real[:, None], cand & row, cand)
+    return cand
+
+
+def host_cand_bitmap(plan: SearchPlan, pos: int, mapping: np.ndarray) -> np.ndarray:
+    """Host (numpy) twin of :func:`compute_cand` for one entry.
+
+    ``mapping`` is a ``[p_pad]`` int array whose positions ``< pos`` hold the
+    partial embedding (-1 elsewhere); returns the ``[w]`` uint32 candidate
+    bitmap ``dom[pos] ∧ ¬used ∧ ⋀_parents adj_row`` with exactly the
+    engine's semantics.  Root seeding (`repro_torch.core.frontier`) uses it
+    to build engine seeds, whose candidate bitmaps the engine trusts and
+    never re-checks.  Works for dense and CSR-only plans.
+    """
+    pos = int(pos)
+    prefix = np.asarray(mapping[:pos], dtype=np.int64)
+    used = bitmap_from_indices(prefix[prefix >= 0], plan.n_t, plan.w)
+    cand = plan.dom_bits[pos] & ~used
+    dense = plan.adj_bits.shape[2] > 0
+    cp = None if dense else plan_csr(plan)
+    for j in range(plan.max_parents):
+        pp = int(plan.parent_pos[pos, j])
+        if pp < 0:
+            continue
+        t = int(mapping[pp])
+        pd = int(plan.parent_dir[pos, j])
+        pl = int(plan.parent_elab[pos, j])
+        if dense:
+            row = plan.adj_bits[pl, pd, t]
+        else:
+            plane = pl * 2 + pd
+            s, e = int(cp.indptr[plane, t]), int(cp.indptr[plane, t + 1])
+            row = bitmap_from_indices(cp.indices[s:e], plan.n_t, plan.w)
+        cand = cand & row
     return cand
 
 

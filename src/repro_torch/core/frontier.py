@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple, TYPE_CHECKING
 import numpy as np
 import torch
 
-from repro_torch.core.graph import WORD_BITS, bitmap_from_indices
+from repro_torch.core.graph import WORD_BITS, bitmap_from_indices, bitmap_to_indices
 from repro_torch.core.plan import SearchPlan
 
 if TYPE_CHECKING:  # engine imports extend imports frontier
@@ -224,10 +224,85 @@ def overflowed(size: torch.Tensor, s_cap: int) -> torch.Tensor:
 
 
 def init_state(plan: SearchPlan, cfg: "EngineConfig", device) -> EngineState:
-    """Initial work distribution of one query, as a pack of one lane: the
-    paper's §3.3 vertex seeding (``cfg.root_seeding == "vertex"``, the only
-    mode ported so far)."""
-    return _init_vertex_state(plan, cfg, device)
+    """Initial work distribution of one query, as a pack of one lane,
+    dispatched on ``cfg.root_seeding``.
+
+    ``"vertex"`` is the paper's §3.3 scheme — depth-0 candidates split into
+    equal contiguous target-node ranges, one root entry per worker.
+    ``"edge"`` enumerates the plan's seed edge class into depth-1 entries
+    (:func:`root_seed_entries`) dealt round-robin across workers
+    (:func:`init_delta_state`); when the class is too populous for the
+    stacks, it falls back to a depth-0 split restricted to the qualifying
+    source nodes — deterministic per ``(plan, cfg)``, so counters agree
+    across step backends.  ``"auto"`` is ``"edge"`` iff the plan carries a
+    seed edge.  The match set is the same under every mode.
+    """
+    mode = cfg.root_seeding
+    if mode == "auto":
+        mode = "edge" if plan.seed_edge is not None else "vertex"
+    if mode != "edge":
+        return _init_vertex_state(plan, cfg, device)
+    if plan.seed_edge is None:
+        raise ValueError(
+            "root_seeding='edge' requires a plan built with seed_edge= "
+            "(plan.seed_edge is unset; see repro_torch.core.plan.build_plan)"
+        )
+    sd, sm, sc = root_seed_entries(plan)
+    k = int(sd.shape[0])
+    per_worker = -(-k // cfg.n_workers) if k else 0
+    if per_worker <= cfg.resolved_stack_cap(plan.p_pad) - 1:
+        return init_delta_state(plan, cfg, sd, sm, sc, device)
+    mask = bitmap_from_indices(sm[:, 0].astype(np.int64), plan.n_t, plan.w)
+    return _init_vertex_state(plan, cfg, device, root_mask=mask)
+
+
+def root_seed_entries(plan: SearchPlan) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Depth-1 engine seeds for edge-centric root seeding (host numpy).
+
+    The seed edge's endpoints hold ordering positions 0/1, so each target
+    arc of the seed class becomes one partial embedding: position 0 maps to
+    the arc's source ``t`` and the entry stores position 1's candidate
+    bitmap (`repro_torch.core.extend.host_cand_bitmap`, which the engine
+    trusts).  Sources are drawn from ``dom[0]`` restricted to rows with a
+    non-empty segment in the seed constraint's plane, so the work follows
+    the rare class, not the target.  Returns ``(seed_depth [K], seed_map
+    [K, p_pad], seed_cand [K, w])`` sorted by source node.
+    """
+    from repro_torch.core.extend import host_cand_bitmap, plan_csr  # extend imports frontier
+
+    p_pad, w = plan.p_pad, plan.w
+    empty = (
+        np.zeros((0,), np.int32),
+        np.zeros((0, p_pad), np.int32),
+        np.zeros((0, w), np.uint32),
+    )
+    if not plan.satisfiable or plan.n_p < 2:
+        return empty
+
+    dom0_idx = bitmap_to_indices(plan.dom_bits[0])
+    # the position-1 parent slot referencing position 0 is the seed edge
+    j0 = next(
+        (j for j in range(plan.max_parents) if int(plan.parent_pos[1, j]) == 0), None
+    )
+    if j0 is not None:
+        plane = int(plan.parent_elab[1, j0]) * 2 + int(plan.parent_dir[1, j0])
+        ptr = plan_csr(plan).indptr[plane].astype(np.int64)
+        dom0_idx = dom0_idx[ptr[dom0_idx + 1] - ptr[dom0_idx] > 0]
+    seeds_m, seeds_c = [], []
+    m = np.full(p_pad, -1, dtype=np.int32)
+    for t in dom0_idx.tolist():
+        m[0] = t
+        c1 = host_cand_bitmap(plan, 1, m)
+        if c1.any():
+            seeds_m.append(m.copy())
+            seeds_c.append(c1)
+    if not seeds_m:
+        return empty
+    return (
+        np.ones(len(seeds_m), dtype=np.int32),
+        np.stack(seeds_m).astype(np.int32),
+        np.stack(seeds_c).astype(np.uint32),
+    )
 
 
 def stack_states(states) -> EngineState:
@@ -235,17 +310,47 @@ def stack_states(states) -> EngineState:
     return EngineState(*(torch.cat(xs, dim=0) for xs in zip(*states)))
 
 
-def _init_vertex_state(
-    plan: SearchPlan, cfg: "EngineConfig", device, root_mask: Optional[np.ndarray] = None
-) -> EngineState:
-    """Depth-0 candidates split into equal contiguous target-node ranges,
-    one root entry per worker; ``root_mask`` optionally restricts the root
-    candidates."""
+def _empty_state(plan: SearchPlan, cfg: "EngineConfig", device) -> EngineState:
+    """A pack of one lane with empty stacks and zero counters."""
     v = cfg.n_workers
     p_pad, w = plan.p_pad, plan.w
     s_cap = cfg.resolved_stack_cap(p_pad)
     mcap = max(1, cfg.collect_matches)
 
+    def zeros(*shape, dtype=torch.int32):
+        return torch.zeros((1,) + shape, dtype=dtype, device=device)
+
+    return EngineState(
+        st_depth=zeros(v, s_cap),
+        st_map=torch.full((1, v, s_cap, p_pad), -1, dtype=torch.int32, device=device),
+        st_used=zeros(v, s_cap, w if cfg.store_used else 1),
+        st_cand=zeros(v, s_cap, w),
+        base=zeros(v),
+        size=zeros(v),
+        matches=zeros(v),
+        states=zeros(v),
+        exp_depth=zeros(v),
+        steals=zeros(v),
+        steal_depth=zeros(v),
+        steal_rounds=zeros(),
+        steps=zeros(),
+        overflow=zeros(dtype=torch.bool),
+        match_buf=torch.full((1, v, mcap, p_pad), -1, dtype=torch.int32, device=device),
+    )
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A host int32 / uint32 array as an int32 tensor on ``device``."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(device)
+
+
+def _init_vertex_state(
+    plan: SearchPlan, cfg: "EngineConfig", device, root_mask: Optional[np.ndarray] = None
+) -> EngineState:
+    """Depth-0 candidates split into equal contiguous target-node ranges,
+    one root entry per worker; ``root_mask`` optionally restricts the root
+    candidates (edge seeding's capacity fallback)."""
+    v, w = cfg.n_workers, plan.w
     splits = np.linspace(0, plan.n_t, v + 1).astype(np.int64)
     root_cands = np.zeros((v, w), dtype=np.uint32)
     for kk in range(v):
@@ -257,25 +362,66 @@ def _init_vertex_state(
     if not plan.satisfiable:
         root_cands[:] = 0
 
-    def zeros(*shape, dtype=torch.int32):
-        return torch.zeros((1,) + shape, dtype=dtype, device=device)
+    state = _empty_state(plan, cfg, device)
+    state.st_cand[0, :, 0] = _upload(root_cands, device)
+    return state._replace(size=_upload(root_cands.any(axis=1).astype(np.int32), device)[None])
 
-    st_cand = zeros(v, s_cap, w)
-    st_cand[0, :, 0] = torch.from_numpy(root_cands.view(np.int32)).to(device)
-    return EngineState(
-        st_depth=zeros(v, s_cap),
-        st_map=torch.full((1, v, s_cap, p_pad), -1, dtype=torch.int32, device=device),
-        st_used=zeros(v, s_cap, w if cfg.store_used else 1),
-        st_cand=st_cand,
-        base=zeros(v),
-        size=torch.from_numpy(root_cands.any(axis=1).astype(np.int32)).to(device)[None],
-        matches=zeros(v),
-        states=zeros(v),
-        exp_depth=zeros(v),
-        steals=zeros(v),
-        steal_depth=zeros(v),
-        steal_rounds=zeros(),
-        steps=zeros(),
-        overflow=zeros(dtype=torch.bool),
-        match_buf=torch.full((1, v, mcap, p_pad), -1, dtype=torch.int32, device=device),
-    )
+
+def init_delta_state(
+    plan: SearchPlan,
+    cfg: "EngineConfig",
+    seed_depth: np.ndarray,
+    seed_map: np.ndarray,
+    seed_cand: np.ndarray,
+    device,
+) -> EngineState:
+    """A pack of one lane whose worker stacks start from the given partial
+    embeddings instead of :func:`init_state`'s depth-0 root split.
+
+    ``seed_depth [K]`` / ``seed_map [K, p_pad]`` / ``seed_cand [K, w]`` must
+    already be engine-valid (`repro_torch.core.extend.host_cand_bitmap`
+    semantics: candidate bits are trusted, never re-checked).  Seeds are
+    dealt round-robin across the ``V`` workers, so seed ``i`` lands in
+    worker ``i % V``, slot ``i // V``; with ``cfg.store_used`` each entry's
+    used-bitmap holds its mapped prefix.  The caller keeps ``K`` small
+    enough that no worker exceeds the stack capacity.
+    """
+    v = cfg.n_workers
+    p_pad, w = plan.p_pad, plan.w
+    s_cap = cfg.resolved_stack_cap(p_pad)
+
+    seed_depth = np.asarray(seed_depth, dtype=np.int32)
+    seed_map = np.asarray(seed_map, dtype=np.int32)
+    seed_cand = np.asarray(seed_cand, dtype=np.uint32)
+    k = int(seed_depth.shape[0])
+    per_worker = -(-k // v) if k else 0
+    if per_worker > s_cap - 1:
+        raise ValueError(
+            f"{k} delta seeds over {v} workers exceed stack_cap={s_cap}; "
+            "chunk the seed batch"
+        )
+
+    # the first per_worker slots of every stack, filled on the host
+    st_depth = np.zeros((v, per_worker), dtype=np.int32)
+    st_map = np.full((v, per_worker, p_pad), -1, dtype=np.int32)
+    st_cand = np.zeros((v, per_worker, w), dtype=np.uint32)
+    st_used = np.zeros((v, per_worker, w), dtype=np.uint32)
+    size = np.zeros((v,), dtype=np.int32)
+    for i in range(k):
+        wk, slot = i % v, i // v
+        st_depth[wk, slot] = seed_depth[i]
+        st_map[wk, slot] = seed_map[i]
+        st_cand[wk, slot] = seed_cand[i]
+        if cfg.store_used:
+            prefix = seed_map[i, : seed_depth[i]].astype(np.int64)
+            st_used[wk, slot] = bitmap_from_indices(prefix[prefix >= 0], plan.n_t, w)
+        size[wk] = slot + 1
+
+    state = _empty_state(plan, cfg, device)
+    if per_worker:
+        state.st_depth[0, :, :per_worker] = _upload(st_depth, device)
+        state.st_map[0, :, :per_worker] = _upload(st_map, device)
+        state.st_cand[0, :, :per_worker] = _upload(st_cand, device)
+        if cfg.store_used:
+            state.st_used[0, :, :per_worker] = _upload(st_used, device)
+    return state._replace(size=_upload(size, device)[None])

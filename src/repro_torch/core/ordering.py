@@ -27,7 +27,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.graph import Graph
+from repro_torch.core.graph import CsrPlanes, Graph, deg_bucket_caps, deg_bucket_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,3 +171,75 @@ def greatest_constraint_first(
         # they are enforced as unary domain constraints in
         # repro_torch.core.domains.initial_domains.
     return Ordering(order=np.asarray(order, dtype=np.int32), parents=tuple(tuple(p) for p in parents))
+
+
+# ---------------------------------------------------------------------------
+# edge-centric seed selection (HiPerMotif-style)
+# ---------------------------------------------------------------------------
+
+def edge_class_stats(planes: CsrPlanes) -> np.ndarray:
+    """Target arc counts per ``(edge_label, src-deg-bucket, dst-deg-bucket)``
+    class — ``[n_elab, B, B]`` int64, ``B`` the pow2 degree-bucket ladder
+    (`repro_torch.core.graph.deg_bucket_caps`) of the planes' ``deg_cap``.
+
+    Each out-plane arc ``(s, t)`` with label ``l`` is counted once, at
+    ``(l, bucket(outdeg_l(s)), bucket(indeg_l(t)))`` — the class frequency
+    table :func:`select_seed_edge` ranks pattern edges by.  O(nnz) host
+    work over already-built :class:`CsrPlanes`.
+    """
+    caps = deg_bucket_caps(max(planes.deg_cap, 1))
+    b = len(caps)
+    nl = planes.n_edge_labels
+    hist = np.zeros((nl, b, b), dtype=np.int64)
+    ptr = planes.indptr.astype(np.int64)
+    for l in range(nl):
+        out_len = np.diff(ptr[2 * l])  # [n_t] per-source outdeg_l
+        in_len = np.diff(ptr[2 * l + 1])  # [n_t] per-dest indeg_l
+        s, e = int(ptr[2 * l, 0]), int(ptr[2 * l, -1])
+        cols = planes.indices[s:e]  # arc destinations, row-major
+        if cols.size == 0:
+            continue
+        sb = deg_bucket_index(np.repeat(out_len, out_len), caps)
+        db = deg_bucket_index(in_len[cols], caps)
+        np.add.at(hist, (l, sb, db), 1)
+    return hist
+
+
+def select_seed_edge(pattern: Graph, planes: CsrPlanes) -> Optional[Tuple[int, int, int]]:
+    """Rarest-edge-class seed selection (HiPerMotif).
+
+    Ranks every non-self-loop pattern edge ``(u, v, l)`` by how many target
+    arcs could host it: the sum of :func:`edge_class_stats` classes with
+    matching label and src/dst degree buckets **at least** the pattern
+    endpoints' per-label degrees (an arc in a smaller bucket can never
+    satisfy the endpoint's adjacency requirements).  Returns the edge with
+    the fewest compatible arcs — the root frontier edge seeding enumerates
+    — with deterministic ``(count, l, u, v)`` tie-breaking, or ``None``
+    when the pattern has no usable edge (empty or all self-loops).
+    """
+    if pattern.m == 0:
+        return None
+    hist = edge_class_stats(planes)
+    caps = deg_bucket_caps(max(planes.deg_cap, 1))
+    nl_t = hist.shape[0]
+    src, dst, elab = pattern.src, pattern.dst, pattern.edge_labels
+    best = None
+    seen = set()
+    for u, v, l in zip(src.tolist(), dst.tolist(), elab.tolist()):
+        if u == v or (l, u, v) in seen:
+            continue
+        seen.add((l, u, v))
+        if l >= nl_t:
+            count = 0  # label absent from the target: trivially rarest
+        else:
+            po = int(np.sum((src == u) & (elab == l)))
+            pi = int(np.sum((dst == v) & (elab == l)))
+            sb = int(deg_bucket_index(np.asarray([po]), caps)[0])
+            db = int(deg_bucket_index(np.asarray([pi]), caps)[0])
+            count = int(hist[l, sb:, db:].sum())
+        k = (count, l, u, v)
+        if best is None or k < best:
+            best = k
+    if best is None:
+        return None
+    return (best[2], best[3], best[1])

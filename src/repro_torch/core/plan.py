@@ -1,12 +1,13 @@
 """SearchPlan — the static preprocessing product handed to the engine.
 
-A copy of ``repro.core.plan`` (all but edge seeding).  Ordering runs on
-the host in numpy; domains come from the numpy oracle
+A copy of ``repro.core.plan``.  Ordering runs on the host in numpy; domains come from the numpy oracle
 `repro_torch.core.domains.compute_domains` (:func:`build_plan`), or, for a
 **CSR-only** plan (:func:`build_csr_plan`), from the host initial domains
 or the CSR-native device fixpoint, never materializing dense adjacency
 bitmaps.  The engine uploads the arrays once per query
-(`repro_torch.core.extend.plan_arrays_for`).
+(`repro_torch.core.extend.plan_arrays_for`).  ``seed_edge=`` anchors a
+pattern edge at ordering positions 0/1 for edge-centric root seeding
+(`repro_torch.core.frontier.root_seed_entries`).
 
 Pattern self-loops never appear in the parent tables (both endpoints share
 one ordering position); they are enforced as unary constraints baked into
@@ -30,7 +31,9 @@ import numpy as np
 
 from repro_torch.core import domains as dom_mod
 from repro_torch.core import ordering as ord_mod
-from repro_torch.core.graph import CsrPlanes, Graph, PackedGraph, n_words, popcount
+from repro_torch.core.graph import (
+    CsrPlanes, Graph, PackedGraph, csr_planes_from_bitmaps, n_words, popcount,
+)
 
 VARIANTS = ("ri", "ri-ds", "ri-ds-si", "ri-ds-si-fc", "ri-ds-si-acfc")
 
@@ -84,6 +87,12 @@ class SearchPlan:
     domains: Optional[dom_mod.DomainResult] = dataclasses.field(
         default=None, compare=False, repr=False
     )
+    # Edge-centric seeding: the pattern edge ``(u, v, elab)`` whose
+    # endpoints occupy ordering positions 0/1, selected by
+    # `repro_torch.core.ordering.select_seed_edge` (or forced explicitly).
+    # When set, ``EngineConfig.root_seeding="edge"|"auto"`` enumerates this
+    # edge class's target arcs directly into depth-1 root entries.
+    seed_edge: Optional[Tuple[int, int, int]] = None
 
     @property
     def max_parents(self) -> int:
@@ -102,7 +111,7 @@ class SearchPlan:
 PLAN_ARRAY_FIELDS = (
     "variant", "n_p", "p_pad", "n_t", "w", "order", "parent_pos",
     "parent_dir", "parent_elab", "n_parents", "dom_bits", "adj_bits",
-    "satisfiable",
+    "satisfiable", "seed_edge",
 )
 
 
@@ -124,6 +133,7 @@ def plan_from_numpy(d: Mapping[str, object]) -> SearchPlan:
         csr = CsrPlanes(n_t=int(csr.n_t), indptr=np.asarray(csr.indptr, dtype=np.int32),
                         indices=np.asarray(csr.indices, dtype=np.int32),
                         deg_cap=int(csr.deg_cap))
+    seed = d["seed_edge"]
     return SearchPlan(
         variant=str(d["variant"]),
         n_p=int(d["n_p"]),
@@ -139,6 +149,7 @@ def plan_from_numpy(d: Mapping[str, object]) -> SearchPlan:
         adj_bits=np.asarray(d["adj_bits"], dtype=np.uint32),
         satisfiable=bool(d["satisfiable"]),
         csr=csr,
+        seed_edge=None if seed is None else tuple(int(x) for x in seed),
     )
 
 
@@ -160,16 +171,23 @@ def build_plan(
     :class:`~repro_torch.core.domains.DomainResult` matching the variant's
     flags.  ``anchor`` forces the given pattern node ids to the front of
     the ordering.  ``csr_factory`` supplies the target's CSR planes when the
-    plan runs under the csr backend.  Edge-centric seeding (``seed_edge``)
-    is not ported yet.
+    plan runs under the csr backend.
+
+    ``seed_edge`` enables edge-centric seeding: ``"auto"`` picks the rarest
+    target edge class (:func:`repro_torch.core.ordering.select_seed_edge`
+    over ``csr_factory``'s planes when given, else planes derived from the
+    dense bitmaps); an explicit ``(u, v, elab)`` pattern-edge triple forces
+    the choice.  The edge's endpoints are anchored to ordering positions
+    0/1 and recorded on ``SearchPlan.seed_edge``.  Mutually exclusive with
+    ``anchor``.
     """
-    if seed_edge is not None:
-        raise NotImplementedError(
-            "seed_edge= (edge-centric seeding) is not ported yet: "
-            "ROADMAP Queue 1 item 8"
-        )
     flags = variant_flags(variant)
     use_ds, use_si = flags["use_ac"], flags["use_si"]
+    seed = _resolve_seed_edge(
+        pattern, seed_edge,
+        csr_factory if csr_factory is not None
+        else (lambda: csr_planes_from_bitmaps(target.adj_bits)),
+    )
     if domains is not None:
         if domains.bits.shape != (pattern.n, target.w):
             raise ValueError(
@@ -185,7 +203,7 @@ def build_plan(
     return _assemble_plan(
         pattern, dres, variant, use_ds, use_si, p_pad, max_parents,
         n_t=target.n, w=target.w, adj_bits=target.adj_bits, anchor=anchor,
-        csr_factory=csr_factory,
+        csr_factory=csr_factory, seed_edge=seed,
     )
 
 
@@ -216,14 +234,9 @@ def build_csr_plan(
     K3 when ``use_pallas``).  Domains are bit-identical to :func:`build_plan`
     for the same variant.  ``domains=`` short-circuits with a precomputed
     :class:`~repro_torch.core.domains.DomainResult`; ``planes=`` passes
-    already-built :class:`CsrPlanes`.  Edge seeding (``seed_edge``) is not
-    ported yet.
+    already-built :class:`CsrPlanes`.  ``seed_edge`` is as in
+    :func:`build_plan`, selected over these planes.
     """
-    if seed_edge is not None:
-        raise NotImplementedError(
-            "seed_edge= (edge-centric seeding) is not ported yet: "
-            "ROADMAP Queue 1 item 8"
-        )
     flags = variant_flags(variant)
     use_ds, use_si = flags["use_ac"], flags["use_si"]
     w = w or n_words(target.n)
@@ -247,11 +260,32 @@ def build_csr_plan(
             interleave=flags["interleave"], use_pallas=use_pallas,
             ac_iters=ac_iters, tgt_arrays=tgt_arrays,
         )
+    seed = _resolve_seed_edge(pattern, seed_edge, lambda: planes)
     return _assemble_plan(
         pattern, dres, variant, use_ds, use_si, p_pad, max_parents,
         n_t=target.n, w=w, adj_bits=np.zeros((n_elab, 2, 0, w), dtype=np.uint32),
-        anchor=anchor, csr=planes,
+        anchor=anchor, csr=planes, seed_edge=seed,
     )
+
+
+def _resolve_seed_edge(pattern: Graph, seed_edge, planes_factory):
+    """Normalize a ``seed_edge=`` argument to a validated ``(u, v, elab)``
+    pattern-edge triple (or ``None``): ``"auto"`` consults
+    `repro_torch.core.ordering.select_seed_edge` over the factory's planes;
+    an explicit triple must name an existing non-self-loop pattern edge."""
+    if seed_edge is None:
+        return None
+    if isinstance(seed_edge, str):
+        if seed_edge != "auto":
+            raise ValueError(f"seed_edge={seed_edge!r}; expected 'auto' or a (u, v, elab) triple")
+        return ord_mod.select_seed_edge(pattern, planes_factory())
+    u, v, lab = (int(x) for x in seed_edge)
+    if u == v:
+        raise ValueError(f"seed_edge {(u, v, lab)} is a self-loop")
+    hit = np.any((pattern.src == u) & (pattern.dst == v) & (pattern.edge_labels == lab))
+    if not hit:
+        raise ValueError(f"seed_edge {(u, v, lab)} is not a pattern edge")
+    return (u, v, lab)
 
 
 def _assemble_plan(
@@ -268,10 +302,17 @@ def _assemble_plan(
     anchor: Optional[Tuple[int, ...]] = None,
     csr: Optional[CsrPlanes] = None,
     csr_factory: Optional[Callable[[], CsrPlanes]] = None,
+    seed_edge: Optional[Tuple[int, int, int]] = None,
 ) -> SearchPlan:
     """Ordering + padded-array assembly shared by :func:`build_plan` and
     :func:`build_csr_plan`."""
     dom_sizes = popcount(dres.bits)
+
+    # the seed edge's endpoints become the forced ordering prefix (0/1)
+    if seed_edge is not None:
+        if anchor is not None:
+            raise ValueError("anchor= and seed_edge= are mutually exclusive")
+        anchor = (seed_edge[0], seed_edge[1])
 
     # RI ignores domains when ordering; RI-DS places singletons first (but its
     # greedy tie-break does not see domain sizes); SI adds the size tie-break.
@@ -331,4 +372,5 @@ def _assemble_plan(
         csr=csr,
         csr_factory=csr_factory,
         domains=dres,
+        seed_edge=seed_edge,
     )

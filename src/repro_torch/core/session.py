@@ -305,6 +305,11 @@ def prepare_query(
     :func:`~repro_torch.core.plan.build_csr_plan`: the ``ri-ds*`` variants
     run the CSR-native domain fixpoint on ``device`` (default: the CUDA
     card; with K8 and K3 when ``use_pallas``), and the plan is CSR-only.
+
+    ``seed_edge`` (``"auto"`` or an explicit ``(u, v, elab)`` pattern-edge
+    triple) anchors that edge at ordering positions 0/1, so an engine with
+    ``root_seeding="edge"`` / ``"auto"`` seeds from its target edge class;
+    ``"auto"`` selects over the index's cached CSR planes.
     """
     index = SubgraphIndex.build(index)
     t0 = time.perf_counter()
@@ -558,10 +563,12 @@ class Enumerator:
     ) -> Query:
         """Compile a pattern into a bucketed :class:`Query` for this session.
 
-        A sparse index yields a CSR-only plan, whose domain fixpoint runs on
-        this session's device (with K8 and K3 when ``use_pallas``); if the
-        session's step backend is explicitly dense (``"jnp"`` /
-        ``"pallas"``), that combination can never run, so it raises here."""
+        ``seed_edge`` is forwarded to :func:`prepare_query` (edge-centric
+        seeding).  A sparse index yields a CSR-only plan, whose domain
+        fixpoint runs on this session's device (with K8 and K3 when
+        ``use_pallas``); if the session's step backend is explicitly dense
+        (``"jnp"`` / ``"pallas"``), that combination can never run, so it
+        raises here."""
         idx = index if index is not None else self.index
         if idx is None:
             raise ValueError(

@@ -173,15 +173,24 @@ def test_cpu_run_launches_no_kernel(rng):
 # ---------------------------------------------------------------------------
 
 # explicit ids keep the ids these cases had before the sparse path's
-# "csr" / "auto" cases moved to test_sparse_config_values_accepted
+# "csr" / "auto" cases moved to test_sparse_config_values_accepted and edge
+# seeding's "edge" / "auto" to test_root_seeding_values_accepted
 @pytest.mark.parametrize("kw,item", [
     pytest.param(dict(step_backend="partitioned"), "item 9", id="kw2-item 9"),
-    pytest.param(dict(root_seeding="edge"), "item 8", id="kw3-item 8"),
-    pytest.param(dict(root_seeding="auto"), "item 8", id="kw4-item 8"),
 ])
 def test_later_config_values_refused(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         EngineConfig(**kw)
+
+
+@pytest.mark.parametrize("seeding", ["vertex", "edge", "auto"])
+def test_root_seeding_values_accepted(seeding):
+    """Every root seeding mode of repro is accepted; others raise as there."""
+    assert EngineConfig(root_seeding=seeding).root_seeding == JaxConfig(
+        root_seeding=seeding).root_seeding
+    for cfg in (EngineConfig, JaxConfig):
+        with pytest.raises(ValueError, match="root_seeding"):
+            cfg(root_seeding=seeding + "s")
 
 
 @pytest.mark.parametrize("backend", ["csr", "auto"])
@@ -203,8 +212,6 @@ def test_later_session_features_refused(rng):
         Enumerator(g, mesh=2, device=CPU)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.run(None, EngineConfig(), mesh=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Enumerator(g, device=CPU).prepare(p, seed_edge="auto")
     enum = Enumerator(g, device=CPU)
     with pytest.raises(NotImplementedError, match="item 10"):
         enum.run_delta(enum.prepare(p), [], None)

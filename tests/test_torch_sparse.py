@@ -476,15 +476,24 @@ def test_plan_csr_derivation_matches_index_planes(rng):
 
 
 def test_sparse_edge_seeding_refused(rng):
-    """Edge seeding is the next slice: a sparse index refuses seed_edge= and
-    the engine refuses edge root seeding, naming ROADMAP Queue 1 item 8."""
+    """The refusals that stay with edge seeding, each as repro's: edge root
+    seeding of a plan without a seed edge, a self-loop or non-edge
+    ``seed_edge``, and ``anchor=`` together with ``seed_edge=``."""
     tgt, pat = _sparse_power_law(rng)
     enum = Enumerator(SubgraphIndex.build(to_port(tgt), sparse=True), device=CPU,
-                      step_backend="csr", **KW)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        enum.prepare(to_port(pat), seed_edge="auto")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        build_csr_plan(to_port(pat), to_port(tgt), seed_edge=(0, 1, 0), device=CPU)
-    for seeding in ("edge", "auto"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            EngineConfig(step_backend="csr", root_seeding=seeding)
+                      step_backend="csr", root_seeding="edge", **KW)
+    jenum = JaxEnumerator(JaxIndex.build(tgt, sparse=True), step_backend="csr",
+                          root_seeding="edge", **KW)
+    for e, p in ((enum, to_port(pat)), (jenum, pat)):
+        with pytest.raises(ValueError, match="seed_edge"):
+            e.run(e.prepare(p))
+    edge = (int(pat.src[0]), int(pat.dst[0]), int(pat.edge_labels[0]))
+    builds = ((lambda **kw: build_csr_plan(to_port(pat), to_port(tgt), device=CPU, **kw)),
+              (lambda **kw: jax_build_csr_plan(pat, tgt, **kw)))
+    for build in builds:
+        with pytest.raises(ValueError, match="self-loop"):
+            build(seed_edge=(edge[0], edge[0], edge[2]))
+        with pytest.raises(ValueError, match="not a pattern edge"):
+            build(seed_edge=(edge[0], edge[1], edge[2] + 7))
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            build(seed_edge=edge, anchor=edge[:2])
