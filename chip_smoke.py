@@ -96,6 +96,33 @@ Phases, each printed as one JSON line:
    timed on layer 0's q/k/v beside its plain version and
    ``scaled_dot_product_attention``.
 
+7. dynamic path — ``benchmarks/bench_incremental.py``'s regime at the
+   size of PPIS32's largest target: ``power_law_graph(12575, avg_deg=4,
+   alpha=2, n_labels=4, seed=7)`` with its arcs deduplicated, a dense
+   index whose CSR plane set is built once, the bench's pattern rule (the
+   first 4-edge ``extract_pattern`` of seeds 8–23 with 5 · 12,575 to
+   120,000 matches; the 16 candidates are counted as one pack whose lanes
+   stop once past 120,000) and its edit stream (1 % of the arcs per edit,
+   half removals of present edges, half pattern-relevant insertions).
+   Four sessions maintain the match set through five edits, each edit
+   ``SubgraphIndex.update`` → ``prepare`` on the new version → the
+   version's upload → ``run_delta`` → ``apply_array`` →
+   ``invalidate_index`` of the retired version: through K1
+   (``"pallas"``), K2 (``"jnp"`` + ``use_pallas``), K6 and K7 (``"csr"``
+   flat and bucketed, on the dense index's patched CSR planes).  A sixth
+   edit goes through an edge-seeded ``csr`` query (``seed_edge="auto"``,
+   ``root_seeding="auto"``) beside the K1 session.  Gates: the four
+   deltas agree on the added and removed mappings and every counter; each
+   maintained count equals a fresh K1 run of the new version, and the
+   sorted mappings equal its at the first and the last two edits; the
+   edge-seeded delta equals the vertex-seeded one and its query plan is
+   its seed edge's anchor plan; each kernel launches inside
+   ``run_delta``; at most two uploads per layout remain after each
+   ``invalidate_index``; the final indexes' bitmaps, degrees and CSR
+   planes equal fresh builds.  Each edit prints the host seconds of every
+   stage, the version's upload, the fresh run's, and recompute over
+   delta (printed, not gated).
+
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before the last line.  Without a CUDA card, or without the repository's
@@ -159,6 +186,25 @@ LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 4, 4096, 16
 LM_TOKEN_SEED = 7
 LM_CHECK_PROMPT = 256
 LM_HEAD_CHUNK = 16
+# phase 7, the dynamic path: benchmarks/bench_incremental.py's regime at the
+# size of PPIS32's largest target (a power-law target of N_T nodes, average
+# degree 4, 4 node labels, one edge label), its pattern rule (a 4-edge
+# extract_pattern with 5 * N_T to 120,000 matches), DYN_STEPS edits of 1 % of
+# the arcs each, maintained by four sessions (the step kernel each one
+# launches in DYN_KERNEL_OF), then one more edit through an edge-seeded query
+DYN = dict(n=N_T, avg_deg=4.0, alpha=2.0, n_labels=4, seed=7)
+DYN_STEPS = 5
+DYN_EDIT_FRACTION = 0.01
+DYN_MIN_MATCHES, DYN_MAX_MATCHES = 5 * N_T, 120_000
+DYN_MAINTAINERS = {
+    "pallas": dict(step_backend="pallas"),
+    "jnp+use_pallas": dict(step_backend="jnp", use_pallas=True),
+    "csr flat": dict(step_backend="csr", use_pallas=True, csr_walk="flat"),
+    "csr bucketed": dict(step_backend="csr", use_pallas=True),
+}
+DYN_KERNEL_OF = {"pallas": "extend_step", "jnp+use_pallas": "candidate_mask",
+                 "csr flat": "csr_extend", "csr bucketed": "csr_extend_bucketed",
+                 "edge csr bucketed": "csr_extend_bucketed"}
 # K9 edge cases (bh, S, S_kv, d, inputs): one query; ragged lengths; S > S_kv
 # and S < S_kv; d of 16, 64, 80, 128 and 256; every score equal
 K9_EDGES = [(4, 1, 1, 64, "random"), (3, 9, 9, 16, "random"), (2, 200, 200, 80, "random"),
@@ -2248,6 +2294,328 @@ def run_lm_path(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the dynamic path (SubgraphIndex.update, run_delta, invalidate_index)
+# ---------------------------------------------------------------------------
+
+def dyn_build_stream(tgt, pat, n_steps: int, seed: int, fraction: float):
+    """benchmarks/bench_incremental.py's ``build_stream``: ``n_steps``
+    batched edits, each touching ``fraction`` of the arcs, half removals of
+    present edges and half pattern-relevant insertions (endpoint and edge
+    labels drawn from the pattern's edges), always both arcs of an edge."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    pe = sorted(set(zip(pat.labels[pat.src].tolist(), pat.labels[pat.dst].tolist(),
+                        pat.edge_labels.tolist())))
+    by_label = {l: np.nonzero(tgt.labels == l)[0] for l in {x for (a, b, _) in pe for x in (a, b)}}
+    present = set(zip(tgt.src.tolist(), tgt.dst.tolist(), tgt.edge_labels.tolist()))
+    k = max(4, int(len(present) * fraction))
+    steps = []
+    for _ in range(n_steps):
+        pres_list = sorted((u, v, l) for (u, v, l) in present if u < v)
+        rem_idx = rng.choice(len(pres_list), size=k // 4, replace=False)
+        rems = []
+        for i in rem_idx:
+            u, v, l = pres_list[i]
+            rems += [(u, v, l), (v, u, l)]
+        adds = []
+        while len(adds) < k - len(rems):
+            la, lb, el = pe[int(rng.integers(len(pe)))]
+            u = int(rng.choice(by_label[la]))
+            v = int(rng.choice(by_label[lb]))
+            t, tr = (u, v, int(el)), (v, u, int(el))
+            if u != v and t not in present and t not in adds:
+                adds += [t, tr]
+        steps.append((adds, rems))
+        present -= set(rems)
+        present |= set(adds)
+    return steps
+
+
+def dyn_capped_counts(enum, queries, cap: int) -> list:
+    """Each query's match count, or None once it passes ``cap``: the
+    queries run as one pack (one coalesce key) on ``enum``'s step path, and
+    a lane freezes as soon as its count passes ``cap`` (a count only
+    grows, so it would pass it in the full run too).  A lane that
+    overflowed its stacks is re-run alone, with the session's retry."""
+    from repro_torch.core import engine as eng
+    from repro_torch.core.frontier import init_state, stack_states
+
+    cfg = enum.config
+    state = stack_states([init_state(q.plan, cfg, enum.device) for q in queries])
+    body = eng.make_round_fn(cfg, enum._plan_arrays(queries, cfg))
+    while True:
+        active = ((state.size.sum(dim=-1) > 0) & ~state.overflow
+                  & (state.matches.sum(dim=-1) <= cap))
+        on = active.cpu().numpy()
+        if not on.any():
+            break
+        state = body(state, None if on.all() else active)
+    counts = state.matches.sum(dim=-1).tolist()
+    overflow = state.overflow.tolist()
+    out = []
+    for q, m, ov in zip(queries, counts, overflow):
+        if ov:
+            m = enum.run(q).matches
+        out.append(None if m > cap else m)
+    return out
+
+
+def dyn_pick_pattern(enum, tgt, seed: int, min_matches: int, max_matches: int):
+    """benchmarks/bench_incremental.py's ``pick_pattern`` rule: the first
+    4-edge ``extract_pattern`` of seeds ``seed + 1 .. seed + 16`` whose match
+    count lies in ``[min_matches, max_matches]``, else the densest one
+    within ``max_matches``.  The candidates are counted together
+    (:func:`dyn_capped_counts`), then the chosen one is run."""
+    from repro_torch.data import graphgen
+
+    seeds = list(range(seed + 1, seed + 17))
+    pats = [graphgen.extract_pattern(tgt, 4, seed=s) for s in seeds]
+    qs = [enum.prepare(p) for p in pats]
+    groups = {}
+    for i, q in enumerate(qs):
+        groups.setdefault(enum.coalesce_key(q), []).append(i)
+    counts = [None] * len(qs)
+    for idxs in groups.values():
+        for i, m in zip(idxs, dyn_capped_counts(enum, [qs[i] for i in idxs], max_matches)):
+            counts[i] = m
+    within = [i for i, m in enumerate(counts) if m is not None]
+    if not within:
+        raise AssertionError(f"no extracted pattern had <= {max_matches} matches")
+    first = [i for i in within if counts[i] >= min_matches]
+    pick = first[0] if first else max(within, key=lambda i: (counts[i], -i))
+    ms = enum.run(qs[pick])
+    if ms.matches != counts[pick]:
+        raise AssertionError(f"pattern seed {seeds[pick]}: {ms.matches} matches alone, "
+                             f"{counts[pick]} in the pack")
+    return pats[pick], qs[pick], ms, seeds[pick], dict(zip(seeds, counts))
+
+
+def _sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dyn_sorted_mappings(enum, query):
+    """A fresh run of ``query`` with a match ring that holds every worker's
+    matches: its counters, seconds of the counting run, and its sorted
+    node-indexed mappings as an ``[M, n_p]`` int64 array."""
+    import numpy as np
+
+    from repro_torch.core.delta import as_node_mappings
+
+    _sync(enum.device)
+    t0 = time.perf_counter()
+    ms = enum.run(query)
+    _sync(enum.device)
+    run_s = time.perf_counter() - t0
+    top = int(ms.per_worker_matches.max()) if ms.matches else 1
+    full = enum.run(query, collect_matches=1 << max(top - 1, 1).bit_length())
+    rows = np.asarray(sorted(as_node_mappings(full)), dtype=np.int64)
+    return ms, run_s, rows.reshape(-1, query.pattern.n)
+
+
+def dyn_step(label, enum, index, pat, cur, adds, rems, seed_edge=None) -> dict:
+    """One maintainer's step: ``update``, ``prepare`` on the new version, the
+    version's upload, ``run_delta`` (its launches counted alone),
+    ``apply_array`` and ``invalidate_index`` of the retired version, each
+    timed on the host (the card synchronised around device work)."""
+    from repro_torch.core.delta import build_anchor_seeds
+    from repro_torch.kernels import ops
+
+    dev = enum.device
+    t0 = time.perf_counter()
+    new_index, delta = index.update(add_edges=adds, remove_edges=rems)
+    update_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q = enum.prepare(pat, index=new_index, seed_edge=seed_edge)
+    prepare_s = time.perf_counter() - t0
+    _sync(dev)
+    t0 = time.perf_counter()
+    if enum.config.step_backend == "csr":
+        enum._csr_upload(new_index.fingerprint, new_index.csr_planes)
+    else:
+        enum._adjacency_rows(new_index.fingerprint, new_index.packed.adj_bits)
+    _sync(dev)
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    anchors = list(enum._anchor_plans(q))
+    anchor_plans_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_seeds = sum(int(build_anchor_seeds(ap, a, delta.added)[0].shape[0]) for a, ap in anchors)
+    seeds_s = time.perf_counter() - t0
+    hits = enum.cache_stats()["cache_hits"]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    dm = enum.run_delta(q, cur, delta)
+    _sync(dev)
+    run_delta_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    if enum.cache_stats()["cache_hits"] == hits and dm.n_anchors:
+        raise AssertionError(f"{label}: run_delta did not read the version's upload")
+    t0 = time.perf_counter()
+    new_cur = dm.apply_array(cur)
+    apply_s = time.perf_counter() - t0
+    dropped = enum.invalidate_index(delta.old_fingerprint)
+    kept = dict(rows=len(enum._rows), csr=len(enum._csr))
+    if max(kept.values()) > 2:
+        raise AssertionError(f"{label}: more than two uploads per layout remain: {kept}")
+    if host_seeds != dm.n_seeds:
+        raise AssertionError(f"{label}: host seeds {host_seeds} != run_delta's {dm.n_seeds}")
+    return dict(index=new_index, query=q, dm=dm, cur=new_cur, launches=launches,
+                row=dict(added=len(dm.added), removed=len(dm.removed), n_old=dm.n_old,
+                         matches=dm.matches, seeds=dm.n_seeds, anchors=dm.n_anchors,
+                         states=dm.states, retries=dm.retries, update_s=update_s,
+                         prepare_s=prepare_s, upload_s=upload_s, anchor_plans_s=anchor_plans_s,
+                         seeds_s=seeds_s, run_delta_s=run_delta_s, apply_array_s=apply_s,
+                         dropped_uploads=dropped, uploads_kept=kept,
+                         launches={k: v for k, v in launches.items() if v}))
+
+
+def _dm_key(dm):
+    return (dm.added, dm.removed, dm.n_old, dm.states, dm.n_seeds, dm.n_anchors, dm.retries)
+
+
+def run_dynamic_path(device):
+    """Phase 7; returns each maintainer's ``run_delta`` launch counts."""
+    import numpy as np
+
+    from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
+    from repro_torch.core.delta import apply_delta, as_mapping_array
+    from repro_torch.data import graphgen
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    tgt = apply_delta(graphgen.power_law_graph(DYN["n"], avg_deg=DYN["avg_deg"],
+                                               alpha=DYN["alpha"], n_labels=DYN["n_labels"],
+                                               seed=DYN["seed"]))
+    index0 = SubgraphIndex.build(tgt)
+    index0.plane_set()  # built once, so every update patches it
+    setup_s = time.perf_counter() - t0
+
+    def session(**kw):
+        return Enumerator(index0, config=EngineConfig(**ENGINE_KW, **kw), variant=VARIANT,
+                          device=device)
+
+    maint = {label: session(**kw) for label, kw in DYN_MAINTAINERS.items()}
+    k1 = maint["pallas"]
+    t0 = time.perf_counter()
+    pat, _, ms0, pat_seed, candidates = dyn_pick_pattern(k1, tgt, DYN["seed"],
+                                                         DYN_MIN_MATCHES, DYN_MAX_MATCHES)
+    pick_s = time.perf_counter() - t0
+    steps = dyn_build_stream(tgt, pat, DYN_STEPS + 1, DYN["seed"], DYN_EDIT_FRACTION)
+    emit(dict(phase="dynamic_setup", n_t=tgt.n, arcs=tgt.m, w=index0.w,
+              edge_labels=index0.n_edge_labels, adj_bytes=index0.packed.adj_bits.nbytes,
+              candidate_matches=candidates, pattern_seed=pat_seed, pattern_nodes=pat.n,
+              pattern_arcs=pat.m,
+              matches=ms0.matches, states=ms0.states, arcs_per_step=len(steps[0][0])
+              + len(steps[0][1]), setup_s=setup_s, pick_pattern_s=pick_s))
+
+    cur0 = as_mapping_array(ms0)
+    state = {label: dict(index=index0, cur=cur0) for label in maint}
+    launches = {label: {} for label in maint}
+    g = tgt
+    for i in range(DYN_STEPS):
+        adds, rems = steps[i]
+        out = {}
+        for label, enum in maint.items():
+            st = state[label]
+            out[label] = dyn_step(label, enum, st["index"], pat, st["cur"], adds, rems)
+            st["index"], st["cur"] = out[label]["index"], out[label]["cur"]
+            _add(launches[label], out[label]["launches"])
+        g = apply_delta(g, added=adds, removed=rems)
+        want = _dm_key(out["pallas"]["dm"])
+        for label, o in out.items():
+            if _dm_key(o["dm"]) != want:
+                raise AssertionError(f"step {i}: {label}'s delta differs from the pallas one")
+            if o["index"].fingerprint != out["pallas"]["index"].fingerprint:
+                raise AssertionError(f"step {i}: {label}'s index version differs")
+        check = i in (0, DYN_STEPS - 1)
+        if check:
+            fresh, fresh_s, rows = dyn_sorted_mappings(k1, out["pallas"]["query"])
+        else:
+            _sync(device)
+            t0 = time.perf_counter()
+            fresh = k1.run(out["pallas"]["query"])
+            _sync(device)
+            fresh_s = time.perf_counter() - t0
+        for label, o in out.items():
+            if len(o["cur"]) != fresh.matches:
+                raise AssertionError(f"step {i}: {label} maintains {len(o['cur'])} matches, "
+                                     f"a fresh K1 run finds {fresh.matches}")
+            if check and not np.array_equal(o["cur"], rows):
+                raise AssertionError(f"step {i}: {label}'s maintained mappings differ from "
+                                     "a fresh run's")
+            o["row"]["recompute_over_delta"] = fresh_s / (o["row"]["update_s"]
+                                                          + o["row"]["run_delta_s"])
+        emit(dict(phase="dynamic_path", step=i, version=out["pallas"]["index"].version,
+                  arcs_added=len(out["pallas"]["dm"].delta.added),
+                  arcs_removed=len(out["pallas"]["dm"].delta.removed),
+                  fresh_matches=fresh.matches, fresh_states=fresh.states, fresh_steps=fresh.steps,
+                  fresh_run_s=fresh_s, mappings_checked=check,
+                  maintainers={label: o["row"] for label, o in out.items()}))
+
+    # one more step: the same edit through an edge-seeded csr query and the
+    # vertex-seeded pallas maintainer
+    g_last = g
+    adds, rems = steps[DYN_STEPS]
+    st = state["pallas"]
+    edge = Enumerator(st["index"], config=EngineConfig(
+        **ENGINE_KW, **DYN_MAINTAINERS["csr bucketed"], root_seeding="auto"),
+        variant=VARIANT, device=device)
+    e = dyn_step("edge csr bucketed", edge, st["index"], pat, st["cur"], adds, rems,
+                 seed_edge="auto")
+    v = dyn_step("pallas", k1, st["index"], pat, st["cur"], adds, rems)
+    launches["edge csr bucketed"] = e["launches"]
+    _add(launches["pallas"], v["launches"])
+    g = apply_delta(g, added=adds, removed=rems)
+    fresh, fresh_s, rows = dyn_sorted_mappings(k1, v["query"])
+    seed = e["query"].plan.seed_edge
+    anchors = dict(edge._anchor_plans(e["query"]))
+    if seed is None or anchors[seed] is not e["query"].plan:
+        raise AssertionError("the edge-seeded query's plan is not its seed edge's anchor plan")
+    if (e["dm"].added, e["dm"].removed) != (v["dm"].added, v["dm"].removed):
+        raise AssertionError("the edge-seeded delta's added / removed differ from the "
+                             "vertex-seeded one's")
+    for label, o in (("edge csr bucketed", e), ("pallas", v)):
+        if not np.array_equal(o["cur"], rows):
+            raise AssertionError(f"edge step: {label}'s maintained mappings differ from a "
+                                 "fresh run's")
+        o["row"]["recompute_over_delta"] = fresh_s / (o["row"]["update_s"]
+                                                      + o["row"]["run_delta_s"])
+    emit(dict(phase="dynamic_path", step=DYN_STEPS, version=v["index"].version,
+              seed_edge=list(seed), arcs_added=len(v["dm"].delta.added),
+              arcs_removed=len(v["dm"].delta.removed), fresh_matches=fresh.matches,
+              fresh_states=fresh.states, fresh_steps=fresh.steps, fresh_run_s=fresh_s,
+              mappings_checked=True,
+              maintainers={"edge csr bucketed": e["row"], "pallas": v["row"]}))
+
+    # every maintained index equals a fresh build of the edited graph: the
+    # four maintainers' after the stream, the edge step's after one more edit
+    for graph, indexes in ((g_last, [state[label]["index"] for label in maint]),
+                           (g, [v["index"], e["index"]])):
+        fresh_index = SubgraphIndex.build(graph)
+        want = fresh_index.csr_planes()
+        for idx in indexes:
+            for f in ("adj_bits", "deg_out", "deg_in"):
+                if not np.array_equal(getattr(idx.packed, f), getattr(fresh_index.packed, f)):
+                    raise AssertionError(f"the updated index's {f} differs from a fresh build")
+            got = idx.csr_planes()
+            if not (np.array_equal(got.indptr, want.indptr)
+                    and np.array_equal(got.indices, want.indices)):
+                raise AssertionError("the updated index's CSR planes differ from a fresh build")
+
+    for label, kernel in DYN_KERNEL_OF.items():
+        if not launches[label].get(kernel):
+            raise AssertionError(f"the {label} run_delta calls never launched {kernel}")
+    emit(dict(phase="dynamic_done", launches=launches,
+              dynamic_path_s=time.perf_counter() - t_phase))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -2328,17 +2696,21 @@ def main() -> int:
     checks += k9_cases
     timing["flash_attention"] = k9_timing_
 
+    dyn = run_dynamic_path(device)
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
                             replaces="src/repro/kernels/extend_step.py:125",
                             launches=launches["pallas"]["extend_step"]
-                            + launches["edge pallas"]["extend_step"]),
+                            + launches["edge pallas"]["extend_step"]
+                            + dyn["pallas"]["extend_step"]),
         "candidate_mask": dict(source="src/repro_torch/csrc/candidate_mask.cu",
                                header="src/repro_torch/csrc/dense_step.cuh",
                                replaces="src/repro/kernels/candidate_mask.py:62",
                                launches=launches["jnp+use_pallas"]["candidate_mask"]
-                               + launches["edge jnp+use_pallas"]["candidate_mask"]),
+                               + launches["edge jnp+use_pallas"]["candidate_mask"]
+                               + dyn["jnp+use_pallas"]["candidate_mask"]),
         "popcount_rows": dict(source="src/repro_torch/csrc/popcount_rows.cu",
                               replaces="src/repro/kernels/popcount_reduce.py:31",
                               launches=batch_launches["prepare_batch"]["popcount_rows"]),
@@ -2353,11 +2725,13 @@ def main() -> int:
         "csr_extend": dict(source="src/repro_torch/csrc/csr_extend.cu",
                            header="src/repro_torch/csrc/csr_extend.cuh",
                            replaces="src/repro/kernels/csr_extend.py:129",
-                           launches=phase5["csr_extend"]),
+                           launches=phase5["csr_extend"] + dyn["csr flat"]["csr_extend"]),
         "csr_extend_bucketed": dict(source="src/repro_torch/csrc/csr_extend_bucketed.cu",
                                     header="src/repro_torch/csrc/csr_extend.cuh",
                                     replaces="src/repro/kernels/csr_extend.py:319",
-                                    launches=phase5["csr_extend_bucketed"]),
+                                    launches=phase5["csr_extend_bucketed"]
+                                    + dyn["csr bucketed"]["csr_extend_bucketed"]
+                                    + dyn["edge csr bucketed"]["csr_extend_bucketed"]),
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
                               header="src/repro_torch/csrc/csr_arc_sweep.cuh",
                               replaces="src/repro/kernels/domain_ac.py:165",

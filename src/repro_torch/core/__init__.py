@@ -6,6 +6,9 @@ Layers:
   domains    — RI-DS domains: numpy oracle (init, arc consistency, FC)
                and the device AC ⇄ FC fixpoint, over dense planes or CSR
   plan       — SearchPlan: static arrays for the engine
+  delta      — dynamic-graph delta algebra: GraphDelta edit sets,
+               edge-anchored seeding, match invalidation / dedup,
+               DeltaMatchSet
   frontier   — ring-buffer worker stacks: state + pop/push ops
   extend     — the expansion step (plain PyTorch, or the CUDA kernels;
                dense bitmaps or the sparse CSR walk)
@@ -19,6 +22,7 @@ Layers:
 """
 
 from repro_torch.core.api import EnumerationResult, enumerate_subgraphs
+from repro_torch.core.delta import DeltaMatchSet, GraphDelta
 from repro_torch.core.domains import (
     DomainResult,
     compute_domains_batch,
@@ -27,7 +31,7 @@ from repro_torch.core.domains import (
     compute_domains_sparse,
 )
 from repro_torch.core.engine import EngineConfig, EngineResult
-from repro_torch.core.graph import CsrPlanes, Graph, PackedGraph
+from repro_torch.core.graph import CsrPlanes, CsrPlaneSet, Graph, PackedGraph
 from repro_torch.core.plan import SearchPlan, VARIANTS, build_csr_plan, build_plan
 from repro_torch.core.multi import QueryResult, enumerate_many
 from repro_torch.core.scheduler import balance_assignment, imbalance
@@ -45,7 +49,9 @@ from repro_torch.core.session import (
 )
 
 __all__ = [
+    "CsrPlaneSet",
     "CsrPlanes",
+    "DeltaMatchSet",
     "DomainResult",
     "EnumerationResult",
     "enumerate_subgraphs",
@@ -53,6 +59,7 @@ __all__ = [
     "EngineResult",
     "Enumerator",
     "Graph",
+    "GraphDelta",
     "MatchSet",
     "PackedGraph",
     "Query",

@@ -254,9 +254,12 @@ class CsrPlanes:
 class CsrPlaneSet:
     """Per-plane CSR adjacency with independently owned buffers: plane
     ``p = elab * 2 + dir`` owns ``indptrs[p]`` (``[n_t + 1]`` int64,
-    plane-local offsets) and ``indices[p]`` (``[nnz_p]`` int32).  The
-    incremental index update of a later slice patches single planes of it;
-    :meth:`to_planes` concatenates back to the flat :class:`CsrPlanes`."""
+    plane-local offsets) and ``indices[p]`` (``[nnz_p]`` int32), sorted and
+    deduplicated per row.  ``SubgraphIndex.update`` patches it through
+    :meth:`grown` and :meth:`patched`, which rebuild only the planes an
+    edit touches and **share every other plane's arrays by reference**;
+    :meth:`to_planes` concatenates back to the flat :class:`CsrPlanes`
+    without re-sorting."""
 
     n_t: int
     indptrs: Tuple[np.ndarray, ...]
@@ -282,6 +285,46 @@ class CsrPlaneSet:
             indptrs.append(np.ascontiguousarray(ptr - ptr[0]))
             indices.append(np.ascontiguousarray(flat.indices[ptr[0] : ptr[-1]]))
         return CsrPlaneSet(n_t=flat.n_t, indptrs=tuple(indptrs), indices=tuple(indices))
+
+    def grown(self, n_planes: int) -> "CsrPlaneSet":
+        """Append empty planes up to ``n_planes`` (existing buffers shared)."""
+        if n_planes <= self.n_planes:
+            return self
+        extra = n_planes - self.n_planes
+        empty_ptr = np.zeros(self.n_t + 1, dtype=np.int64)
+        empty_idx = np.zeros(0, dtype=np.int32)
+        return CsrPlaneSet(
+            n_t=self.n_t,
+            indptrs=self.indptrs + tuple(empty_ptr for _ in range(extra)),
+            indices=self.indices + tuple(empty_idx for _ in range(extra)),
+        )
+
+    def patched(self, plane_rows: dict) -> "CsrPlaneSet":
+        """New plane set with ``plane_rows[p][row] = sorted indices`` spliced
+        in.  Only planes appearing in ``plane_rows`` get new buffers; every
+        other plane's ``(indptr, indices)`` arrays are reused as-is."""
+        indptrs = list(self.indptrs)
+        indices = list(self.indices)
+        for p, rows in plane_rows.items():
+            if not rows:
+                continue
+            ptr, idx = indptrs[p], indices[p]
+            lens = np.diff(ptr)
+            pieces = []
+            prev_end = 0
+            for r in sorted(rows):
+                s, e = int(ptr[r]), int(ptr[r + 1])
+                new_row = np.asarray(rows[r], dtype=np.int32)
+                pieces.append(idx[prev_end:s])
+                pieces.append(new_row)
+                prev_end = e
+                lens[r] = new_row.shape[0]
+            pieces.append(idx[prev_end:])
+            new_ptr = np.zeros(self.n_t + 1, dtype=np.int64)
+            np.cumsum(lens, out=new_ptr[1:])
+            indptrs[p] = new_ptr
+            indices[p] = np.concatenate(pieces) if pieces else idx
+        return CsrPlaneSet(n_t=self.n_t, indptrs=tuple(indptrs), indices=tuple(indices))
 
     def to_planes(self) -> CsrPlanes:
         """Concatenate to the canonical flat :class:`CsrPlanes` layout (rows

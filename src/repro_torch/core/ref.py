@@ -6,6 +6,10 @@ of ``repro.core.ref.ref_enumerate`` for dense and CSR-only plans).  Its ``states
 counter is the paper's search-space metric: a state is counted each time a
 consistent extension ``M ∪ {μ_d → v}`` is formed.  The engine must agree
 with it on both matches and states.
+
+:func:`ref_delta` is the incremental oracle (a copy of ``repro``'s): it
+replays an edit one inserted arc at a time through full re-enumerations,
+independently of the anchored engine path of ``Enumerator.run_delta``.
 """
 
 from __future__ import annotations
@@ -96,3 +100,94 @@ def ref_enumerate(
 
     rec(0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# incremental oracle
+# ---------------------------------------------------------------------------
+
+def ref_node_mappings(
+    pattern: Graph, target: Graph, variant: str = "ri-ds-si-fc"
+) -> List[Tuple[int, ...]]:
+    """Sorted node-indexed mappings (``m[pattern_node] = target_node``) of a
+    full sequential enumeration — the ordering-independent form delta
+    results are compared in."""
+    packed = PackedGraph.from_graph(target)
+    plan = build_plan(pattern, packed, variant=variant)
+    res = ref_enumerate(
+        pattern, target, variant=variant, packed=packed, plan=plan,
+        record_mappings=True,
+    )
+    order = [int(x) for x in plan.order[: plan.n_p]]
+    out = []
+    for row in res.mappings:
+        nm = [0] * len(order)
+        for i, t in enumerate(row):
+            nm[order[i]] = int(t)
+        out.append(tuple(nm))
+    return sorted(out)
+
+
+@dataclasses.dataclass
+class RefDeltaResult:
+    """Incremental-oracle result: sorted node-indexed mapping sets."""
+
+    added: List[Tuple[int, ...]]
+    removed: List[Tuple[int, ...]]
+    n_old: int
+
+    @property
+    def matches(self) -> int:
+        return self.n_old - len(self.removed) + len(self.added)
+
+
+def ref_delta(
+    pattern: Graph,
+    old_target: Graph,
+    added=(),
+    removed=(),
+    variant: str = "ri-ds-si-fc",
+) -> RefDeltaResult:
+    """Incremental enumeration oracle, independent of the anchored engine
+    path: removals invalidate old matches by arc-membership test; then the
+    effective insertions are replayed **one arc at a time** on the growing
+    graph, fully re-enumerating at each step and crediting each match to
+    the step whose arc it uses (a match needing arc ``i`` cannot exist
+    before step ``i``, so this partitions the new matches exactly).
+    Mirrors ``SubgraphIndex.update``'s set semantics: insert∩remove of one
+    arc cancels, duplicate inserts and removals of absent arcs drop out.
+    """
+    from repro_torch.core.delta import apply_delta, normalize_edges, pattern_edge_triples
+
+    adds = normalize_edges(added)
+    rems = normalize_edges(removed)
+    cancel = set(adds) & set(rems)
+    old_arcs = set(
+        zip(
+            old_target.src.tolist(),
+            old_target.dst.tolist(),
+            old_target.edge_labels.tolist(),
+        )
+    )
+    eff_add = tuple(t for t in adds if t not in cancel and t not in old_arcs)
+    eff_rem = tuple(t for t in rems if t not in cancel and t in old_arcs)
+
+    old_maps = ref_node_mappings(pattern, old_target, variant)
+    pe = pattern_edge_triples(pattern)
+    rset = set(eff_rem)
+    removed_maps = [
+        m for m in old_maps if any((m[u], m[v], l) in rset for (u, v, l) in pe)
+    ]
+
+    g = apply_delta(old_target, removed=eff_rem)
+    added_maps: List[Tuple[int, ...]] = []
+    for arc in eff_add:
+        g = apply_delta(g, added=[arc])
+        added_maps.extend(
+            m
+            for m in ref_node_mappings(pattern, g, variant)
+            if any((m[u], m[v], l) == arc for (u, v, l) in pe)
+        )
+    return RefDeltaResult(
+        added=sorted(added_maps), removed=removed_maps, n_old=len(old_maps)
+    )

@@ -1,13 +1,16 @@
 """Prepared-query session API for subgraph enumeration.
 
-A port of ``repro.core.session`` (all but dynamic graphs, meshes and the
-out-of-core backend):
+A port of ``repro.core.session`` (all but meshes and the out-of-core
+backend):
 
 * :class:`SubgraphIndex` — a prepared target: the :class:`PackedGraph`
   bitmaps plus label/degree metadata, built once and reused across
   queries; or, with ``build(graph, sparse=True)``, a **CSR-only** index
   whose adjacency is the target's :class:`CsrPlanes` (dense bitmaps never
-  exist — the layout of the paper's 33k-node PDBSv1 targets).
+  exist — the layout of the paper's 33k-node PDBSv1 targets).  A dense
+  index is **versioned**: ``update(add_edges, remove_edges)`` returns a
+  new index (patched bitmaps and CSR planes, ``version + 1``, a chained
+  fingerprint) and its :class:`~repro_torch.core.delta.GraphDelta`.
 * :class:`Query` — a pattern compiled against an index into a
   :class:`SearchPlan` padded to a shape bucket (``p_pad ∈ {16, 32, 64,
   128}``, ``max_parents = 8``); CSR-only against a sparse index.
@@ -26,14 +29,16 @@ out-of-core backend):
       ``stack_cap`` overflow retry;
     - ``run_batch(queries)`` / ``stream(queries)`` — LPT-balanced packs of
       same-key queries, each pack one engine run whose steps launch one
-      kernel for every lane of the pack; ``run_pack`` runs one given pack.
+      kernel for every lane of the pack; ``run_pack`` runs one given pack;
+    - ``run_delta(query, old, delta)`` — maintain a match set across one
+      index update: removals by membership test, insertions by engine runs
+      seeded from the inserted arcs; ``invalidate_index(fingerprint)``
+      drops a retired version's device copies.
 
 An explicitly dense step backend (``"jnp"`` / ``"pallas"``) cannot run a
 CSR-only plan; the session raises ``ValueError`` at prepare and run entry.
-Maintaining results under graph edits (``run_delta``) raises
-``NotImplementedError``, naming the ROADMAP item that brings it.  PyTorch
-compiles nothing here, so ``repro``'s compile cache, its counters and
-``warm`` have no counterpart.
+PyTorch compiles nothing here, so ``repro``'s compile cache, its counters
+and ``warm`` have no counterpart.
 
 Typical use::
 
@@ -56,16 +61,20 @@ from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from repro_torch.core import delta as delta_mod
 from repro_torch.core import domains as dom_mod
 from repro_torch.core import engine as eng
 from repro_torch.core import extend
+from repro_torch.core.delta import DeltaMatchSet, GraphDelta
 from repro_torch.core.engine import EngineConfig, EngineResult
-from repro_torch.core.frontier import EngineState, init_state, stack_states
+from repro_torch.core.frontier import EngineState, init_delta_state, init_state, stack_states
 from repro_torch.core.graph import (
+    WORD_BITS,
     CsrPlanes,
+    CsrPlaneSet,
     Graph,
     PackedGraph,
-    csr_planes_from_bitmaps,
+    bitmap_to_indices,
     n_words,
     popcount,
 )
@@ -120,6 +129,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
 
 
+def _match_count(old) -> int:
+    """Prior-match count without materializing mappings: a MatchSet-like
+    object carries it as ``.matches`` (an int); anything else is a
+    sequence of mappings."""
+    m = getattr(old, "matches", None)
+    if isinstance(m, int):
+        return m
+    try:
+        return len(old)
+    except TypeError:
+        return len(list(old))
+
+
 # ---------------------------------------------------------------------------
 # SubgraphIndex — a prepared target
 # ---------------------------------------------------------------------------
@@ -130,6 +152,9 @@ class SubgraphIndex:
 
     ``fingerprint`` is a content hash of the target; an
     :class:`Enumerator` keys its device copy of the adjacency by it.
+    :meth:`update` makes a new version: ``version + 1`` and a fingerprint
+    chained through the edit, so a run on the new version never reads the
+    old version's upload.
 
     A **sparse** index (``build(graph, sparse=True)``) never materializes
     the dense adjacency bitmaps: ``packed`` is a metadata shell whose
@@ -144,10 +169,15 @@ class SubgraphIndex:
     label_counts: np.ndarray  # [n_labels] int64
     max_degree: int
     build_s: float
+    version: int = 0
     fingerprint: str = ""
     sparse: bool = False
     graph: Optional[Graph] = dataclasses.field(default=None, repr=False, compare=False)
-    # the CSR planes, built lazily for a dense index (eagerly for a sparse one)
+    # the per-plane CSR adjacency of a dense index, built lazily; update()
+    # patches only its touched planes and shares the rest across versions
+    _plane_set: Optional[CsrPlaneSet] = dataclasses.field(default=None, repr=False,
+                                                          compare=False)
+    # the flat CSR planes, built lazily for a dense index (eagerly for a sparse one)
     _csr_flat: Optional[CsrPlanes] = dataclasses.field(default=None, repr=False,
                                                        compare=False)
 
@@ -226,13 +256,153 @@ class SubgraphIndex:
     def n_edge_labels(self) -> int:
         return self.packed.n_edge_labels
 
+    def plane_set(self) -> CsrPlaneSet:
+        """Per-plane CSR adjacency, built lazily and patched (not rebuilt)
+        by :meth:`update` — untouched planes share buffers across versions."""
+        if self.sparse:
+            raise ValueError(
+                "sparse SubgraphIndex has no per-plane set derived from "
+                "dense bitmaps; use csr_planes() for the flat adjacency"
+            )
+        if self._plane_set is None:
+            object.__setattr__(self, "_plane_set", CsrPlaneSet.from_bitmaps(self.packed.adj_bits))
+        return self._plane_set
+
     def csr_planes(self) -> CsrPlanes:
         """The index's canonical :class:`CsrPlanes` (cached): plans built
         against it read them through their ``csr_factory``, so the csr
-        backend never re-derives planes per plan."""
+        backend never re-derives planes per plan.  A dense index takes them
+        from :meth:`plane_set`, so an update's patched planes reach the csr
+        step."""
         if self._csr_flat is None:
-            object.__setattr__(self, "_csr_flat", csr_planes_from_bitmaps(self.packed.adj_bits))
+            object.__setattr__(self, "_csr_flat", self.plane_set().to_planes())
         return self._csr_flat
+
+    # -- incremental update ------------------------------------------------
+
+    def update(
+        self,
+        add_edges: Iterable = (),
+        remove_edges: Iterable = (),
+    ) -> Tuple["SubgraphIndex", GraphDelta]:
+        """Apply an edge edit, returning ``(new_index, delta)`` (host numpy,
+        as in ``repro``).
+
+        Edits are ``(u, v)`` or ``(u, v, elab)`` arc triples with set
+        semantics: duplicate inserts and removals of absent arcs are
+        dropped, and an arc both inserted and removed in the *same* call
+        cancels before anything is applied.  A true no-op returns ``self``
+        unchanged (same object, same version) with an empty delta.
+
+        The new index patches a copy of the dense bitmaps (bit flips on
+        touched rows), re-sorts only the touched rows of the touched CSR
+        planes (untouched planes share buffers by reference), recomputes
+        degrees for touched nodes only, and shares the label arrays.  Node
+        set and node labels are immutable; inserting an arc with a new edge
+        label grows the plane axis.  Degrees are recomputed from the
+        patched bitmaps, i.e. as *distinct-arc* counts.
+
+        A sparse (CSR-only) index cannot be updated.
+        """
+        if self.sparse:
+            raise NotImplementedError(
+                "incremental update of a sparse (CSR-only) SubgraphIndex is "
+                "not supported — rebuild with SubgraphIndex.build(graph, "
+                "sparse=True), or build a dense index when deltas are needed"
+            )
+        t0 = time.perf_counter()
+        adds = delta_mod.normalize_edges(add_edges)
+        rems = delta_mod.normalize_edges(remove_edges)
+        cancel = set(adds) & set(rems)
+        packed = self.packed
+        n, w, nl = packed.n, packed.w, packed.n_edge_labels
+        for (u, v, l) in tuple(adds) + tuple(rems):
+            if not (0 <= u < n and 0 <= v < n):
+                raise ValueError(f"edit arc ({u}, {v}) out of range for n={n}")
+            if l < 0:
+                raise ValueError(f"negative edge label {l}")
+
+        def present(t) -> bool:
+            u, v, l = t
+            if l >= nl:
+                return False
+            return bool((int(packed.adj_bits[l, 0, u, v // WORD_BITS]) >> (v % WORD_BITS)) & 1)
+
+        eff_add = tuple(t for t in adds if t not in cancel and not present(t))
+        eff_rem = tuple(t for t in rems if t not in cancel and present(t))
+        if not eff_add and not eff_rem:
+            return self, GraphDelta(
+                added=(), removed=(),
+                old_version=self.version, new_version=self.version,
+                old_fingerprint=self.fingerprint, new_fingerprint=self.fingerprint,
+            )
+
+        nl_new = max(nl, 1 + max((l for (_, _, l) in eff_add), default=-1))
+        if nl_new > nl:
+            adj = np.zeros((nl_new, 2, n, w), dtype=np.uint32)
+            adj[:nl] = packed.adj_bits
+        else:
+            adj = packed.adj_bits.copy()
+        for (u, v, l) in eff_add:
+            adj[l, 0, u, v // WORD_BITS] |= np.uint32(1) << np.uint32(v % WORD_BITS)
+            adj[l, 1, v, u // WORD_BITS] |= np.uint32(1) << np.uint32(u % WORD_BITS)
+        for (u, v, l) in eff_rem:
+            adj[l, 0, u, v // WORD_BITS] &= ~(np.uint32(1) << np.uint32(v % WORD_BITS))
+            adj[l, 1, v, u // WORD_BITS] &= ~(np.uint32(1) << np.uint32(u % WORD_BITS))
+
+        # degrees: recompute touched endpoints from the patched bitmaps
+        deg_out = packed.deg_out.copy()
+        deg_in = packed.deg_in.copy()
+        touched_src = np.fromiter({u for (u, _, _) in eff_add + eff_rem}, dtype=np.int64)
+        touched_dst = np.fromiter({v for (_, v, _) in eff_add + eff_rem}, dtype=np.int64)
+        if len(touched_src):
+            deg_out[touched_src] = popcount(adj[:, 0, touched_src, :]).sum(axis=0)
+        if len(touched_dst):
+            deg_in[touched_dst] = popcount(adj[:, 1, touched_dst, :]).sum(axis=0)
+
+        new_packed = PackedGraph(
+            n=n, w=w, adj_bits=adj, labels=packed.labels, deg_out=deg_out, deg_in=deg_in,
+        )
+
+        # CSR plane set: patch only touched (plane, row) pairs; untouched
+        # planes' buffers are shared by reference
+        new_plane_set = None
+        if self._plane_set is not None:
+            rows_of: Dict[int, Dict[int, np.ndarray]] = {}
+            for (u, v, l) in eff_add + eff_rem:
+                rows_of.setdefault(l * 2, {})[u] = None
+                rows_of.setdefault(l * 2 + 1, {})[v] = None
+            for p, rows in rows_of.items():
+                for r in rows:
+                    rows[r] = bitmap_to_indices(adj[p // 2, p % 2, r])
+            new_plane_set = self.plane_set().grown(2 * nl_new).patched(rows_of)
+
+        # the fingerprint chains through the edit, byte for byte as repro's
+        h = hashlib.blake2b(digest_size=16)
+        h.update(self.fingerprint.encode())
+        h.update(repr((eff_add, eff_rem)).encode())
+        new_fp = h.hexdigest()
+
+        degs = deg_out + deg_in
+        new_index = SubgraphIndex(
+            packed=new_packed,
+            n_labels=self.n_labels,
+            label_counts=self.label_counts,
+            max_degree=int(degs.max()) if n else 0,
+            build_s=time.perf_counter() - t0,
+            version=self.version + 1,
+            fingerprint=new_fp,
+            _plane_set=new_plane_set,
+        )
+        delta = GraphDelta(
+            added=eff_add,
+            removed=eff_rem,
+            old_version=self.version,
+            new_version=new_index.version,
+            old_fingerprint=self.fingerprint,
+            new_fingerprint=new_fp,
+        )
+        return new_index, delta
 
 
 def _fingerprint_packed(packed: PackedGraph) -> str:
@@ -269,6 +439,13 @@ class Query:
     name: str
     prepare_s: float
     index: Optional[SubgraphIndex] = dataclasses.field(default=None, repr=False)
+    # per-anchor plan cache for run_delta: {(pa, pb, elab): SearchPlan}
+    _anchors: Dict[Tuple[int, int, int], SearchPlan] = dataclasses.field(
+        default_factory=dict, repr=False, compare=False
+    )
+    _anchor_domains: Optional[dom_mod.DomainResult] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     @property
     def bucket(self) -> Tuple[int, int, int, int, int]:
@@ -474,6 +651,9 @@ class Enumerator:
                                            dom_mod.CsrTargetDomainArrays]] = {}
         self.uploads = 0
         self.cache_hits = 0
+        # sticky high-water match-ring size for seeded delta runs (see
+        # _run_seeded): grow-retries fold into one steady-state size
+        self._delta_mcap = self._DELTA_MCAP
 
     # -- cache -------------------------------------------------------------
 
@@ -484,6 +664,20 @@ class Enumerator:
                 "entries": len(self._rows) + len(self._csr)}
 
     cache_info = cache_stats
+
+    def invalidate_index(self, fingerprint: str) -> int:
+        """Drop the device copies of index version ``fingerprint`` (one
+        retired by ``SubgraphIndex.update``): its adjacency uploads and the
+        domain fixpoint's arrays built on them.  Returns the number of
+        uploads dropped (what ``cache_stats()["entries"]`` counts).
+        Correctness never depends on it — the cache is keyed by the
+        fingerprint, so a run never reads another version's upload."""
+        if not fingerprint:
+            return 0
+        dropped = sum(cache.pop(fingerprint, None) is not None
+                      for cache in (self._rows, self._csr))
+        self._dom_targets.pop(fingerprint, None)
+        return dropped
 
     def _cached(self, cache: "collections.OrderedDict", fp: str, make: Callable):
         """``cache[fp]``, made by ``make()`` and counted as an upload on a
@@ -745,8 +939,176 @@ class Enumerator:
             )
         return res
 
-    def run_delta(self, query, old_matches, delta):
-        raise _not_ported("Enumerator.run_delta (dynamic graphs)", "10")
+    # -- execution: delta ---------------------------------------------------
+
+    def run_delta(
+        self,
+        query: Union[Query, Graph],
+        old_matches,
+        delta: GraphDelta,
+    ) -> DeltaMatchSet:
+        """Incrementally maintain ``old_matches`` across one index update.
+
+        ``query`` must be prepared against the delta's **new** index
+        version (after ``new_index, delta = index.update(...)``, call
+        ``enum.prepare(pattern, index=new_index)``); ``old_matches`` is the
+        prior result for the old version — a :class:`MatchSet`, an ``[M,
+        n_p]`` array or a list of node-indexed mappings.  Work is restricted
+        to the delta:
+
+        * removals invalidate prior matches by membership test (no
+          enumeration at all);
+        * insertions are enumerated by anchoring each distinct pattern
+          edge onto each compatible inserted target arc and running the
+          engine from those seeds only
+          (`repro_torch.core.frontier.init_delta_state`), on this session's
+          step backend, deduplicated by the max-inserted-edge-index rule
+          (`repro_torch.core.delta`).
+
+        ``result.apply(old_matches)`` equals a fresh enumeration's sorted
+        node-indexed mappings.
+        """
+        query = self._coerce(query)
+        if delta.new_fingerprint and query.index_fingerprint != delta.new_fingerprint:
+            raise ValueError(
+                "run_delta: query is not prepared against the delta's new "
+                "index version (fingerprint mismatch) — after "
+                "SubgraphIndex.update(), prepare the query against the "
+                "returned index"
+            )
+        t0 = time.perf_counter()
+        removed: List[Tuple[int, ...]] = []
+        if delta.removed:
+            old_arr = delta_mod.as_mapping_array(old_matches)
+            n_old = len(old_arr)
+            removed = delta_mod.invalidated_mappings(query.pattern, old_arr, delta.removed)
+        else:
+            n_old = _match_count(old_matches)
+        added: List[Tuple[int, ...]] = []
+        states = seeds = anchors = retries = 0
+        if delta.added and query.plan.satisfiable:
+            for anchor, aplan in self._anchor_plans(query):
+                sd, sm, sc = delta_mod.build_anchor_seeds(aplan, anchor, delta.added)
+                if not sd.shape[0]:
+                    continue
+                anchors += 1
+                seeds += int(sd.shape[0])
+                rows, st, rt = self._run_seeded(query, aplan, sd, sm, sc)
+                states += st
+                retries += rt
+                added.extend(delta_mod.filter_new_matches(
+                    query.pattern, delta_mod.canonical_mappings(aplan, rows),
+                    delta.added, anchor,
+                ))
+        return DeltaMatchSet(
+            name=query.name,
+            added=sorted(added),
+            removed=sorted(removed),
+            n_old=n_old,
+            states=states,
+            n_seeds=seeds,
+            n_anchors=anchors,
+            preprocess_s=query.prepare_s,
+            match_s=time.perf_counter() - t0,
+            retries=retries,
+            delta=delta,
+        )
+
+    def _anchor_plans(self, query: Query) -> Iterator[Tuple[Tuple[int, int, int], SearchPlan]]:
+        """``(anchor, plan)`` per distinct pattern edge triple, cached on
+        the query.  Domains are ordering-independent, so one DomainResult
+        (the query plan's own) is shared by every anchor plan; anchor plans
+        keep the query's padding.  An edge-seeded query's plan *is* its
+        seed edge's anchor plan and is reused by identity."""
+        if query.index is None:
+            raise ValueError(
+                "run_delta needs a query bound to a SubgraphIndex "
+                "(prepare it through an Enumerator / prepare_query)"
+            )
+        idx = query.index
+        if query._anchor_domains is None:
+            query._anchor_domains = query.plan.domains
+        for anchor in delta_mod.pattern_edge_triples(query.pattern):
+            aplan = query._anchors.get(anchor)
+            if aplan is None:
+                if query.plan.seed_edge == anchor:
+                    aplan = query.plan
+                else:
+                    pa, pb, _ = anchor
+                    aplan = build_plan(
+                        query.pattern, idx.packed, variant=query.variant,
+                        p_pad=query.plan.p_pad, max_parents=query.plan.max_parents,
+                        domains=query._anchor_domains,
+                        anchor=(pa,) if pa == pb else (pa, pb),
+                        csr_factory=idx.csr_planes,
+                    )
+                query._anchors[anchor] = aplan
+            yield anchor, aplan
+
+    # first match-ring size for seeded runs; grown (pow2) if any worker's
+    # per-run match count wraps its ring
+    _DELTA_MCAP = 256
+
+    def _run_seeded(
+        self,
+        query: Query,
+        aplan: SearchPlan,
+        sd: np.ndarray,
+        sm: np.ndarray,
+        sc: np.ndarray,
+    ) -> Tuple[np.ndarray, int, int]:
+        """Run the engine from delta seed entries, in worker-capacity
+        chunks; returns ``(match rows in aplan position space [K, n_p],
+        states, retries)``.  Seeded runs always collect matches (the delta
+        result is the mappings); a run whose per-worker match count wraps
+        the collect ring, or that overflows its stacks, is retried with a
+        doubled ring / stack cap."""
+        cfg0 = self.config
+        aq = Query(
+            pattern=query.pattern, plan=aplan, variant=query.variant,
+            name=f"{query.name}~delta", prepare_s=0.0, index=query.index,
+        )
+        v = cfg0.n_workers
+        cap0 = cfg0.resolved_stack_cap(aplan.p_pad)
+        chunk = v * max(cap0 // 2, 1)
+        rows_out: List[np.ndarray] = []
+        states = retries = 0
+        for j in range(0, int(sd.shape[0]), chunk):
+            cs, cm, cc = sd[j:j + chunk], sm[j:j + chunk], sc[j:j + chunk]
+            # start from the largest ring any earlier seeded run needed
+            mcap = max(self._DELTA_MCAP, self._delta_mcap)
+            cap = cap0
+            while True:
+                cfg = dataclasses.replace(cfg0, collect_matches=mcap, stack_cap=cap)
+                arrays = self._plan_arrays([aq], cfg)
+                state = init_delta_state(aplan, cfg, cs, cm, cc, self.device)
+                res = eng.result_from_state(eng._engine_loop(cfg, arrays, state), cfg)
+                if res.overflow:
+                    if cap >= cap0 * 4:
+                        raise RuntimeError(
+                            f"delta run for {query.name!r} still overflows "
+                            f"at stack_cap={cap} — set an explicit "
+                            "EngineConfig.stack_cap budget"
+                        )
+                    cap *= 2
+                    retries += 1
+                    continue
+                pw = res.per_worker_matches
+                top = int(np.max(pw)) if pw is not None and pw.size else res.matches
+                if top > mcap:
+                    mcap = 1 << (top - 1).bit_length()
+                    self._delta_mcap = max(self._delta_mcap, mcap)
+                    retries += 1
+                    continue
+                break
+            states += res.states
+            if res.match_buf is not None and res.matches:
+                rows = res.match_buf.reshape(-1, res.match_buf.shape[-1])
+                valid = (rows[:, : aplan.n_p] >= 0).all(axis=1)
+                rows_out.append(rows[valid][:, : aplan.n_p])
+        if rows_out:
+            return np.concatenate(rows_out, axis=0), states, retries
+        return np.zeros((0, aplan.n_p), dtype=np.int32), states, retries
 
     # -- execution: packs ---------------------------------------------------
 

@@ -212,8 +212,5 @@ def test_later_session_features_refused(rng):
         Enumerator(g, mesh=2, device=CPU)
     with pytest.raises(NotImplementedError, match="item 11"):
         eng.run(None, EngineConfig(), mesh=2, device=CPU)
-    enum = Enumerator(g, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        enum.run_delta(enum.prepare(p), [], None)
     with pytest.raises(ValueError, match="step_backend"):
         EngineConfig(step_backend="tpu")

@@ -43,7 +43,7 @@ def _modules():
 # every module of the port so far; the walk below must find each of them
 PORT_MODULES = {
     "repro_torch", "repro_torch.core", "repro_torch.core.api", "repro_torch.core.domains",
-    "repro_torch.core.engine", "repro_torch.core.extend", "repro_torch.core.frontier",
+    "repro_torch.core.delta", "repro_torch.core.engine", "repro_torch.core.extend", "repro_torch.core.frontier",
     "repro_torch.core.graph", "repro_torch.core.multi", "repro_torch.core.ordering",
     "repro_torch.core.plan", "repro_torch.core.ref", "repro_torch.core.scheduler",
     "repro_torch.core.session", "repro_torch.data", "repro_torch.data.graphgen",
