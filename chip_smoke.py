@@ -122,6 +122,27 @@ Phases, each printed as one JSON line:
    planes equal fresh builds.  Each edit prints the host seconds of every
    stage, the version's upload, the fresh run's, and recompute over
    delta (printed, not gated).
+8. out-of-core path — ``benchmarks/bench_outofcore.py``'s regime: a
+   power-law target of 33,000 nodes (average degree 4, 8 labels, seed 7)
+   on a sparse ``SubgraphIndex``, its ``extract_pattern`` of 8 edges, 8
+   workers of expand width 4.  ``Enumerator(memory_budget_bytes=...)``
+   with a quarter of the target's padded resident plane bytes runs the
+   query through K7 (``csr_walk="bucketed"``) and K6 (``"flat"``), and
+   ``step_backend="partitioned", n_partitions=2`` through K7; each run
+   cold, then warm, beside a monolithic ``csr`` K7 run.  Gates: the derived
+   partitioning's padded resident bytes are within the budget; matches and
+   states equal the monolithic run's and ``ref_enumerate``'s; flat equals
+   bucketed on every counter and every ``stats`` key; ``visits``,
+   ``spilled`` and ``dead_spills`` equal ``ref_enumerate_partitioned``'s;
+   K6 and K7 each launch in their partitioned runs; and K6 and K7 give 0
+   mismatched words against their plain versions on a recorded
+   partitioned step of each walk that has lanes whose every parent is off
+   the resident partition and lanes with resident and off-partition
+   parents (the bench pattern's search has no lane of the first kind, so
+   the step comes from a run of the pattern without one of its edges, cut
+   short once the step is taken).  It prints the partition count and bytes, each run's
+   scheduling statistics, seconds (cold and warm) and the host seconds of
+   intake and ring drains, and the card's name and power limit.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -131,6 +152,7 @@ before the last line.  Without a CUDA card, or without the repository's
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -205,6 +227,21 @@ DYN_MAINTAINERS = {
 DYN_KERNEL_OF = {"pallas": "extend_step", "jnp+use_pallas": "candidate_mask",
                  "csr flat": "csr_extend", "csr bucketed": "csr_extend_bucketed",
                  "edge csr bucketed": "csr_extend_bucketed"}
+# phase 8, the out-of-core path: benchmarks/bench_outofcore.py's regime, a
+# power-law target of 33,000 nodes (average degree 4, 8 node labels, seed 7)
+# indexed CSR-only, its pattern (extract_pattern of 8 edges, seed 7), 8
+# workers of expand_width 4, and a budget of a quarter of the padded resident
+# bytes of the target as one partition; then OOC_N_PARTS partitions by count
+OOC = dict(n=33_000, avg_deg=4.0, n_labels=8, seed=7)
+OOC_PATTERN_EDGES = 8
+OOC_KW = dict(n_workers=8, expand_width=4)
+OOC_BUDGET_FACTOR = 4
+OOC_N_PARTS = 2
+# the partitioned sessions: (label, csr_walk, session keywords, the step
+# kernel the walk launches)
+OOC_RUNS = (("budget bucketed", "bucketed", "budget", "csr_extend_bucketed"),
+            ("budget flat", "flat", "budget", "csr_extend"),
+            (f"{OOC_N_PARTS} parts bucketed", "bucketed", "count", "csr_extend_bucketed"))
 # K9 edge cases (bh, S, S_kv, d, inputs): one query; ragged lengths; S > S_kv
 # and S < S_kv; d of 16, 64, 80, 128 and 256; every score equal
 K9_EDGES = [(4, 1, 1, 64, "random"), (3, 9, 9, 16, "random"), (2, 200, 200, 80, "random"),
@@ -2616,6 +2653,312 @@ def run_dynamic_path(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the out-of-core path (memory_budget_bytes, step_backend="partitioned")
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def part_probe():
+    """Within the block, each ``engine.run_partitioned`` call appends its
+    ``stats`` to ``probe["stats"]``, and the host seconds of its intake
+    (``_intake_chunk``) and ring drains (``_drain_spill``) add up in
+    ``probe["intake_s"]`` / ``probe["drain_s"]``."""
+    from repro_torch.core import engine
+
+    probe = dict(stats=[], intake_s=0.0, drain_s=0.0)
+    orig = {name: getattr(engine, name)
+            for name in ("run_partitioned", "_intake_chunk", "_drain_spill")}
+
+    def run_partitioned(*args, **kw):
+        kw["stats"] = stats = {}
+        out = orig["run_partitioned"](*args, **kw)
+        probe["stats"].append(stats)
+        return out
+
+    def timed(name, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig[name](*args, **kw)
+            finally:
+                probe[key] += time.perf_counter() - t0
+        return call
+
+    engine.run_partitioned = run_partitioned
+    engine._intake_chunk = timed("_intake_chunk", "intake_s")
+    engine._drain_spill = timed("_drain_spill", "drain_s")
+    try:
+        yield probe
+    finally:
+        for name, fn in orig.items():
+            setattr(engine, name, fn)
+
+
+class _Recorded(Exception):
+    """Ends a run whose step inputs :func:`record_part_step` has taken."""
+
+
+def record_part_step(enum, query, kernel: str, max_calls: int = 4000):
+    """The arguments of a call of ``kernel`` (K6 ``csr_extend`` or K7
+    ``csr_extend_bucketed``) in a run of ``query`` under the partitioned
+    session ``enum`` with both kinds of lanes the partitioned step brings:
+    lanes that want a child whose every real parent is off the resident
+    partition, and lanes with resident and off-partition parents.  Of the
+    first such call and the 256 calls after it, the one with the most
+    valid lanes, as ``{"x": inputs, "n_p", "deg_cap", "valid", "all_off",
+    "mixed"}`` with copies of the per-lane arguments; then the run is cut
+    short.  None if the first ``max_calls`` calls have no such call."""
+    from repro_torch.core import extend
+    from repro_torch.kernels import ops
+
+    seg = {}
+    segments = extend.PartitionedCsrStepBackend._segments
+    op = getattr(ops, kernel)
+    best = dict(valid=-1, calls=0, first=None)
+
+    def seg_rec(self, row, map2):
+        out = segments(self, row, map2)
+        seg["pending"] = out[2]
+        return out
+
+    def rec(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p, used, cand, deg_cap):
+        best["calls"] += 1
+        valid = (cand != 0).any(dim=1)
+        off = valid & (depth + 1 < n_p) & (seg["pending"] != 0)
+        resident = (seg_len >= 0).any(dim=1)
+        all_off, mixed = int((off & ~resident).sum()), int((off & resident).sum())
+        n_valid = int(valid.sum())
+        if all_off and mixed and n_valid > best["valid"]:
+            best.update(valid=n_valid, n_p=n_p, deg_cap=deg_cap, all_off=all_off, mixed=mixed,
+                        first=best["first"] or best["calls"],
+                        x=dict(indices=indices, dom_bits=dom_bits, seg_start=seg_start.clone(),
+                               seg_len=seg_len.clone(), child_pos=child_pos.clone(),
+                               depth=depth.clone(), used=used.clone(), cand=cand.clone()))
+        if best["calls"] >= (best["first"] + 256 if best["first"] else max_calls):
+            raise _Recorded
+        return op(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p, used, cand,
+                  deg_cap=deg_cap)
+
+    setattr(ops, kernel, rec)
+    extend.PartitionedCsrStepBackend._segments = seg_rec
+    try:
+        enum.run(query)
+    except _Recorded:
+        pass
+    finally:
+        setattr(ops, kernel, op)
+        extend.PartitionedCsrStepBackend._segments = segments
+    return best if best["valid"] >= 0 else None
+
+
+def pattern_minus_edge(pattern, k: int):
+    """``pattern`` without its ``k``-th undirected edge (both arcs), or None
+    if that disconnects it: a pattern with every occurrence of
+    ``pattern`` among its own."""
+    import numpy as np
+
+    from repro_torch.core import Graph
+
+    pairs = sorted({(min(u, v), max(u, v)) for u, v in zip(pattern.src.tolist(),
+                                                            pattern.dst.tolist()) if u != v})
+    if k >= len(pairs):
+        return None
+    cut = pairs[k]
+    keep = [i for i, (u, v) in enumerate(zip(pattern.src.tolist(), pattern.dst.tolist()))
+            if (min(u, v), max(u, v)) != cut]
+    g = Graph.from_edges(pattern.n, [(int(pattern.src[i]), int(pattern.dst[i])) for i in keep],
+                         labels=pattern.labels, edge_labels=pattern.edge_labels[keep])
+    seen, todo = {0}, [0]
+    while todo:
+        u = todo.pop()
+        for v in np.concatenate([g.out_neighbors(u), g.in_neighbors(u)]).tolist():
+            if v not in seen:
+                seen.add(v)
+                todo.append(v)
+    return g if len(seen) == g.n else None
+
+
+def check_part_steps(steps: dict) -> tuple:
+    """K6 and K7 against their plain versions on each recorded partitioned
+    step (:func:`record_part_step`, keyed by walk), and timed on it beside
+    the plain version and the bound."""
+    from repro_torch.kernels import csr_extend as ce
+    from repro_torch.kernels import ref as kref
+
+    cases, timing = [], {}
+    for walk, s in steps.items():
+        x, n_p, cap = s["x"], s["n_p"], s["deg_cap"]
+        cases.append(dict(csr_step_case(x, n_p, cap), inputs=f"partitioned {walk} step",
+                          query=s["query"], valid_lanes=s["valid"],
+                          lanes_all_parents_off=s["all_off"], lanes_mixed_parents=s["mixed"]))
+        args = [x[k] for k in CSR_ARGS] + [n_p, x["used"], x["cand"]]
+        nbytes = csr_step_bytes(x, n_p, cap)
+        for name, kern, plain in (
+                ("csr_extend", ce.csr_extend_cuda, kref.csr_extend_ref),
+                ("csr_extend_bucketed", ce.csr_extend_bucketed_cuda,
+                 kref.csr_extend_bucketed_ref)):
+            timing.setdefault(name, {})[walk] = dict(
+                valid_lanes=s["valid"], b=int(x["cand"].shape[0]), w=int(x["cand"].shape[1]),
+                bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ms=cuda_ms(lambda: kern(*args, deg_cap=cap)),
+                plain_ms=cuda_ms(lambda: plain(*args, deg_cap=cap), reps=10))
+    return cases, timing
+
+
+def _counter_key(ms):
+    return _counters(ms) + (ms.mean_steal_depth, ms.mean_expand_depth)
+
+
+def run_outofcore_path(device, smi: str):
+    """Phase 8; returns the launch counts of its runs, and K6 / K7 checked
+    and timed on recorded partitioned steps."""
+    import numpy as np
+
+    from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
+    from repro_torch.core import extend
+    from repro_torch.core.ref import ref_enumerate, ref_enumerate_partitioned
+    from repro_torch.data import graphgen
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    target = graphgen.power_law_graph(OOC["n"], avg_deg=OOC["avg_deg"],
+                                      n_labels=OOC["n_labels"], seed=OOC["seed"])
+    pattern = graphgen.extract_pattern(target, OOC_PATTERN_EDGES, seed=OOC["seed"])
+    index = SubgraphIndex.build(target, sparse=True)
+    planes = index.csr_planes()
+    setup_s = time.perf_counter() - t0
+
+    def session(walk="bucketed", **kw):
+        return Enumerator(index, config=EngineConfig(**OOC_KW, use_pallas=True, csr_walk=walk),
+                          device=device, **kw)
+
+    def timed_run(enum, query):
+        _sync(device)
+        t0 = time.perf_counter()
+        ms = enum.run(query)
+        _sync(device)
+        return ms, time.perf_counter() - t0
+
+    mono = session(step_backend="csr")
+    t0 = time.perf_counter()
+    q = mono.prepare(pattern, name="outofcore")
+    prepare_s = time.perf_counter() - t0
+    whole = extend.part_resident_nbytes(extend.plan_partitions(q.plan, 1))
+    budget = whole // OOC_BUDGET_FACTOR
+    pp = extend.plan_partitions_budget(q.plan, budget)
+    resident = extend.part_resident_nbytes(pp)
+    if resident > budget:
+        raise AssertionError(f"the derived partitioning holds {resident} bytes > budget {budget}")
+    emit(dict(phase="outofcore_setup", n_t=target.n, arcs=target.m, nnz=planes.nnz,
+              max_degree=int(np.diff(planes.indptr, axis=1).max()), pattern_nodes=pattern.n,
+              pattern_arcs=pattern.m, plane_bytes=planes.nbytes, whole_resident_bytes=whole,
+              budget_bytes=budget, n_parts=pp.n_parts, resident_bytes=resident,
+              per_part_nbytes=[p.nbytes for p in pp.parts], cut_edges=pp.cut_edges,
+              setup_s=setup_s, prepare_s=prepare_s))
+
+    launches = {}
+    (mono_cold, mono_cold_s), counts = _launched(lambda: timed_run(mono, q))
+    _add(launches, counts)
+    (want, mono_warm_s), counts = _launched(lambda: timed_run(mono, q))
+    _add(launches, counts)
+    if _counters(want) != _counters(mono_cold):
+        raise AssertionError("the monolithic csr run is not deterministic")
+    ref = ref_enumerate(pattern, target, plan=q.plan)
+    if (ref.matches, ref.states) != (want.matches, want.states):
+        raise AssertionError(f"monolithic csr {(want.matches, want.states)} != ref_enumerate "
+                             f"{(ref.matches, ref.states)}")
+    emit(dict(phase="outofcore_path", run="monolithic csr bucketed", launches=counts,
+              matches=want.matches, states=want.states, steps=want.steps, cold_s=mono_cold_s,
+              warm_s=mono_warm_s))
+
+    results, stats, oracles = {}, {}, {}
+    sessions = {}
+    for label, walk, mode, kernel in OOC_RUNS:
+        kw = (dict(memory_budget_bytes=budget) if mode == "budget"
+              else dict(step_backend="partitioned", n_partitions=OOC_N_PARTS))
+        enum = sessions[label] = session(walk, **kw)
+        if enum.config.step_backend != "partitioned":
+            raise AssertionError(f"{label}: the session's backend is {enum.config.step_backend}")
+        n_parts = enum._partition_count(enum.config, q.plan)
+        runs = {}
+        for when in ("cold", "warm"):
+            with part_probe() as probe:
+                (ms, run_s), counts = _launched(lambda: timed_run(enum, q))
+            _add(launches, counts)
+            if not counts[kernel]:
+                raise AssertionError(f"{label} ({when}) never launched {kernel}: {counts}")
+            (st,) = probe["stats"]
+            runs[when] = dict(ms=ms, stats=st, run_s=run_s, intake_s=probe["intake_s"],
+                              drain_s=probe["drain_s"], launches=counts)
+        if _counter_key(runs["cold"]["ms"]) != _counter_key(runs["warm"]["ms"]) \
+                or runs["cold"]["stats"] != runs["warm"]["stats"]:
+            raise AssertionError(f"{label}: the warm run differs from the cold one")
+        ms, st = runs["warm"]["ms"], runs["warm"]["stats"]
+        if (ms.matches, ms.states) != (want.matches, want.states):
+            raise AssertionError(f"{label}: {(ms.matches, ms.states)} != the monolithic run's "
+                                 f"{(want.matches, want.states)}")
+        if st["n_parts"] != n_parts or (mode == "budget" and st["n_parts"] != pp.n_parts):
+            raise AssertionError(f"{label}: ran {st['n_parts']} partitions, not {n_parts}")
+        if n_parts not in oracles:
+            oracles[n_parts] = ref_enumerate_partitioned(pattern, target, n_parts, plan=q.plan)
+        orc = oracles[n_parts]
+        got = (ms.matches, ms.states, st["visits"], st["spilled"], st["dead_spills"])
+        if got != (orc.matches, orc.states, orc.visits, orc.spilled, orc.dead_spills):
+            raise AssertionError(f"{label}: (matches, states, visits, spilled, dead_spills) "
+                                 f"{got} != ref_enumerate_partitioned's "
+                                 f"{(orc.matches, orc.states, orc.visits, orc.spilled, orc.dead_spills)}")
+        results[label], stats[label] = ms, st
+        emit(dict(phase="outofcore_path", run=label, csr_walk=walk, **{
+            k: st[k] for k in ("n_parts", "visits", "legs", "rounds", "spilled", "dead_spills",
+                               "max_pool", "cut_edges", "resident_plane_bytes",
+                               "final_stack_cap", "final_spill_cap")},
+            matches=ms.matches, states=ms.states, steps=ms.steps, steals=ms.steals,
+            steal_rounds=ms.steal_rounds,
+            **{f"{when}_{k}": r[k] for when, r in runs.items()
+               for k in ("run_s", "intake_s", "drain_s", "launches")},
+            monolithic_cold_s=mono_cold_s, monolithic_warm_s=mono_warm_s,
+            warm_over_monolithic=runs["warm"]["run_s"] / mono_warm_s))
+    flat, bucketed = "budget flat", "budget bucketed"
+    if _counter_key(results[flat]) != _counter_key(results[bucketed]) \
+            or stats[flat] != stats[bucketed]:
+        raise AssertionError("the flat and bucketed partitioned runs disagree")
+
+    # the recorded steps: the bench pattern's search never meets a lane whose
+    # every parent is off the partition (each live entry keeps a resident
+    # parent that its children share), so they come from partitioned runs of
+    # the pattern without one of its edges (the first such pattern whose runs
+    # under both walks give a step with both kinds of lanes), cut short once
+    # the step is taken
+    steps, tried = {}, []
+    for k in range(pattern.m):
+        pat = pattern_minus_edge(pattern, k)
+        if pat is None:
+            continue
+        rq = mono.prepare(pat, name=f"outofcore minus edge {k}")
+        for label, walk, mode, kernel in OOC_RUNS:
+            if mode == "budget":
+                step = record_part_step(sessions[label], rq, kernel)
+                if step is not None:
+                    steps[walk] = dict(step, query=rq.name)
+        tried.append(dict(query=rq.name, arcs=pat.m, walks=sorted(steps)))
+        if len(steps) == 2:
+            break
+        steps = {}
+    if len(steps) != 2:
+        raise AssertionError(f"no partitioned step with lanes whose every parent is off the "
+                             f"partition and lanes with mixed parents: {tried}")
+    cases, timing = check_part_steps(steps)
+    emit(dict(phase="outofcore_steps", cases=cases, timing=timing, queries_tried=tried,
+              oracle=dict(matches=ref.matches, states=ref.states,
+                          partitioned={n: dict(visits=o.visits, spilled=o.spilled,
+                                               dead_spills=o.dead_spills)
+                                       for n, o in oracles.items()}),
+              nvidia_smi=smi, outofcore_path_s=time.perf_counter() - t_phase))
+    if any(v for c in cases for k, v in c.items() if k.endswith("_mismatches")):
+        raise AssertionError(f"K6 / K7 disagree on a partitioned step: {cases}")
+    return launches, cases, timing
+
+
+# ---------------------------------------------------------------------------
 
 def main() -> int:
     try:
@@ -2698,6 +3041,11 @@ def main() -> int:
 
     dyn = run_dynamic_path(device)
 
+    ooc, ooc_cases, ooc_timing = run_outofcore_path(device, smi)
+    checks += ooc_cases
+    for name, by_walk in ooc_timing.items():
+        timing[name].update({f"partitioned_step_{walk}": t for walk, t in by_walk.items()})
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
@@ -2725,13 +3073,15 @@ def main() -> int:
         "csr_extend": dict(source="src/repro_torch/csrc/csr_extend.cu",
                            header="src/repro_torch/csrc/csr_extend.cuh",
                            replaces="src/repro/kernels/csr_extend.py:129",
-                           launches=phase5["csr_extend"] + dyn["csr flat"]["csr_extend"]),
+                           launches=phase5["csr_extend"] + dyn["csr flat"]["csr_extend"]
+                           + ooc["csr_extend"]),
         "csr_extend_bucketed": dict(source="src/repro_torch/csrc/csr_extend_bucketed.cu",
                                     header="src/repro_torch/csrc/csr_extend.cuh",
                                     replaces="src/repro/kernels/csr_extend.py:319",
                                     launches=phase5["csr_extend_bucketed"]
                                     + dyn["csr bucketed"]["csr_extend_bucketed"]
-                                    + dyn["edge csr bucketed"]["csr_extend_bucketed"]),
+                                    + dyn["edge csr bucketed"]["csr_extend_bucketed"]
+                                    + ooc["csr_extend_bucketed"]),
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
                               header="src/repro_torch/csrc/csr_arc_sweep.cuh",
                               replaces="src/repro/kernels/domain_ac.py:165",
@@ -2754,7 +3104,7 @@ def main() -> int:
                  if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_",
                                   "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes",
                                   "cold_", "real_step_", "valid_", "lanes_", "table_",
-                                  "kernel_trace"))}
+                                  "kernel_trace", "partitioned_step_"))}
         if "header" in m:
             extra["header"] = m["header"]
         kernels.append(dict(

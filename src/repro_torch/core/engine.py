@@ -4,7 +4,8 @@ The array form of the paper's work-stealing DFS: `repro_torch.core.frontier`
 owns the ring-buffer stacks, `repro_torch.core.extend` the expansion step
 (plain PyTorch, or the ``extend_step`` / ``candidate_mask`` CUDA kernels),
 `repro_torch.core.scheduler` the steal policy, and this module the round
-loop and the steal round.  A port of the single-device half of
+loop and the steal round, and the host scheduling loop of the out-of-core
+path (:func:`run_partitioned`).  A port of the single-device half of
 ``repro.core.engine``.
 
 ``repro`` runs the loop as a ``lax.while_loop`` on the device, vmapped
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch.core import extend, frontier, scheduler
 from repro_torch.core.extend import AnyPlanArrays, plan_arrays_for
-from repro_torch.core.frontier import EngineState, init_state
+from repro_torch.core.frontier import EngineState, SpillState, init_state
+from repro_torch.core.graph import bitmap_from_indices
 from repro_torch.core.plan import SearchPlan
 
 
@@ -66,17 +68,22 @@ class EngineConfig:
       collect_matches: if > 0, materialize up to this many mappings per
         worker into a ring buffer.
       step_backend: ``"jnp"`` (plain PyTorch step), ``"pallas"`` (the
-        fused ``extend_step`` kernel), ``"csr"`` (the sparse CSR step) or
+        fused ``extend_step`` kernel), ``"csr"`` (the sparse CSR step),
         ``"auto"`` (``"csr"`` past ``extend.CSR_AUTO_NT`` target nodes and
-        for CSR-only plans, else ``"jnp"``).  ``repro``'s
-        ``"partitioned"`` is refused until its slice is ported.
+        for CSR-only plans, else ``"jnp"``) or ``"partitioned"`` (the
+        out-of-core path, :func:`run_partitioned`: the target's CSR rows
+        stream through the device one partition at a time).
       use_pallas: with ``step_backend="jnp"``, route the candidate AND
-        through the ``candidate_mask`` kernel; with ``"csr"``, run the step
-        as the ``csr_extend_bucketed`` / ``csr_extend`` kernel.
+        through the ``candidate_mask`` kernel; with ``"csr"`` and
+        ``"partitioned"``, run the step as the ``csr_extend_bucketed`` /
+        ``csr_extend`` kernel.
       store_used: keep per-entry used-bitmaps on the stack (True) or
         recompute them from the mapping at expansion time (False).
-      n_partitions, spill_cap: settings of the out-of-core backend
-        (not ported yet; kept so configurations carry over).
+      n_partitions: with ``step_backend="partitioned"``, how many
+        contiguous row partitions the target streams through (0 → 1).  The
+        session derives it from ``memory_budget_bytes``.
+      spill_cap: per-worker spill-ring capacity under the partitioned
+        backend; 0 = auto (see :meth:`resolved_spill_cap`).
       root_seeding: how worker stacks are first filled
         (`repro_torch.core.frontier.init_state`): ``"vertex"``, the paper's
         depth-0 root split over the first position's domain; ``"edge"``,
@@ -108,12 +115,7 @@ class EngineConfig:
     csr_walk: str = "bucketed"
 
     def __post_init__(self):
-        if self.step_backend in extend.LATER_STEP_BACKENDS:
-            raise NotImplementedError(
-                f"step_backend={self.step_backend!r} is not ported yet: "
-                + extend.LATER_STEP_BACKENDS[self.step_backend]
-            )
-        valid = extend.STEP_BACKENDS + ("auto",)
+        valid = extend.STEP_BACKENDS + ("auto", "partitioned")
         if self.step_backend not in valid:
             raise ValueError(f"step_backend={self.step_backend!r}; expected one of {valid}")
         if self.root_seeding not in ("vertex", "edge", "auto"):
@@ -129,6 +131,15 @@ class EngineConfig:
         if self.stack_cap:
             return self.stack_cap
         return self.expand_width * (p_pad + 2) + self.steal_chunk + 8
+
+    def resolved_spill_cap(self, p_pad: int) -> int:
+        """Spill-ring capacity: at least twice the pushes one round can make
+        (:func:`part_spill_margin`, the drain watermark), so the round loop
+        always yields to the host before a ring can overflow."""
+        if self.spill_cap:
+            return self.spill_cap
+        return max(4 * self.resolved_stack_cap(p_pad),
+                   2 * self.rebalance_interval * self.expand_width)
 
 
 class EngineResult(NamedTuple):
@@ -263,16 +274,23 @@ def _engine_loop(cfg: EngineConfig, plan: AnyPlanArrays, state: EngineState) -> 
         state = body(state, None if on.all() else active)
 
 
-def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineResult:
-    """Enumerate all isomorphic subgraphs described by ``plan`` on
-    ``device`` (default: the CUDA card; raises without one).  The plan
-    arrays follow the resolved step backend (dense bitmaps, or CSR planes
-    for ``"csr"`` / large-``n_t`` ``"auto"``).  ``mesh=`` (worker stacks
-    sharded over several cards) is not ported yet."""
+def _refuse_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
             "mesh= is not ported yet: ROADMAP Queue 1 item 11 (multi-device)"
         )
+
+
+def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineResult:
+    """Enumerate all isomorphic subgraphs described by ``plan`` on
+    ``device`` (default: the CUDA card; raises without one).  The plan
+    arrays follow the resolved step backend (dense bitmaps, or CSR planes
+    for ``"csr"`` / large-``n_t`` ``"auto"``); ``"partitioned"`` routes to
+    :func:`run_partitioned`.  ``mesh=`` (worker stacks sharded over
+    several cards) is not ported yet."""
+    _refuse_mesh(mesh)
+    if cfg.step_backend == "partitioned":
+        return run_partitioned(plan, cfg, device=device)
     device = resolve_device(device)
     arrays = plan_arrays_for(cfg, [plan], device)
     final = _engine_loop(cfg, arrays, init_state(plan, cfg, device))
@@ -304,4 +322,339 @@ def result_from_state(final: EngineState, cfg: EngineConfig, lane: int = 0) -> E
         overflow=bool(final.overflow),
         match_buf=host(final.match_buf) if cfg.collect_matches else None,
         per_worker_steals=host(final.steals),
+    )
+
+
+# ---------------------------------------------------------------------------
+# out-of-core partitioned execution
+# ---------------------------------------------------------------------------
+#
+# The target's CSR planes are row-partitioned (PartitionedPlanes); at any
+# moment exactly ONE partition's planes are on the device.  Children whose
+# parent rows are all resident are fully constrained and go to the live
+# stacks; children owing intersections to non-resident rows are parked in
+# per-worker spill rings with a pending-parent bitmask.  The host drains the
+# rings into per-partition pools, enumerates the resident partition to
+# quiescence, swaps in the partition with the deepest pool, finishes
+# constraining its pooled entries at intake (dead / live seed / re-spill
+# toward the next pending parent), and repeats until every pool is empty.
+# Only fully constrained entries are ever extracted, so the match set is the
+# monolithic run's: partitioning changes scheduling, never results.
+
+def part_spill_margin(cfg: EngineConfig) -> int:
+    """Most spill pushes per worker in one round: the drain watermark.  The
+    round loop yields to the host while this much ring headroom remains, so
+    a round can never overflow a ring."""
+    return cfg.rebalance_interval * cfg.expand_width
+
+
+def make_part_round_fn(cfg: EngineConfig, plan: extend.PartPlanArrays):
+    """One partitioned round over ``(EngineState, SpillState)``:
+    ``rebalance_interval`` partitioned steps, then a steal round over the
+    live stacks (spill rings are worker-local and never stolen from: they
+    hold parked, not runnable, work).  ``repro`` compacts the rings each
+    round; the port addresses them modulo their base and does not."""
+    step = extend.make_partitioned_step_fn(cfg, plan)
+
+    def body(st: EngineState, spill: SpillState):
+        for _ in range(cfg.rebalance_interval):
+            st, spill = step(st, spill)
+        if cfg.work_stealing and cfg.n_workers > 1:
+            st = _steal_round(cfg, st)
+        return st._replace(steps=st.steps + cfg.rebalance_interval), spill
+
+    return body
+
+
+def _part_engine_loop(cfg: EngineConfig, plan: extend.PartPlanArrays,
+                      st: EngineState, spill: SpillState):
+    """Run partitioned rounds until the live stacks drain, ``max_steps`` is
+    reached, a stack or a spill ring overflows, or a ring crosses its drain
+    watermark: ``repro``'s ``while_loop`` condition, read once per round
+    (one host synchronisation).  The host then drains the rings and, if
+    work remains, comes back with the same live state."""
+    max_steps = cfg.max_steps or (1 << 30)
+    body = make_part_round_fn(cfg, plan)
+    margin = part_spill_margin(cfg)
+    while True:
+        go = ((st.size.sum() > 0) & (st.steps < max_steps).all() & ~st.overflow.any()
+              & ~spill.sp_overflow & ~frontier.spill_watermark(spill, margin))
+        if not bool(go):
+            return st, spill
+        st, spill = body(st, spill)
+
+
+def _intake_entry(plan: SearchPlan, pp, pid: int, depth: int,
+                  map_row: np.ndarray, cand: np.ndarray, pending: int):
+    """Apply the now-resident pending parents of one pooled entry: AND the
+    partition's adjacency rows into ``cand`` and clear their pending bits.
+    Returns the updated ``(cand, pending)``."""
+    lo, hi = int(pp.node_start[pid]), int(pp.node_start[pid + 1])
+    part = pp.parts[pid]
+    j = 0
+    rem = pending
+    while rem:
+        if rem & 1:
+            t = int(map_row[int(plan.parent_pos[depth, j])])
+            if lo <= t < hi:
+                plane = int(plan.parent_elab[depth, j]) * 2 + int(plan.parent_dir[depth, j])
+                s = int(part.indptr[plane, t - lo])
+                e = int(part.indptr[plane, t - lo + 1])
+                cand = cand & bitmap_from_indices(
+                    part.indices[s:e].astype(np.int64), plan.n_t, plan.w)
+                pending &= ~(1 << j)
+        rem >>= 1
+        j += 1
+    return cand, pending
+
+
+def _intake_chunk(plan: SearchPlan, pp, pid: int, pools, chunk_n: int):
+    """Pop up to ``chunk_n`` entries from partition ``pid``'s pool and
+    finish or advance their constraints: dead entries are dropped, entries
+    still pending go to the partition of their (new) first pending parent,
+    fully constrained ones become live seeds.  Returns ``(seed_depth,
+    seed_map, seed_cand, n_dead)``, possibly with no seeds."""
+    pool = pools[pid]
+    sd, sm, sc = [], [], []
+    n_dead = 0
+    while pool and len(sd) < chunk_n:
+        depth, map_row, cand, pending = pool.pop()
+        cand, pending = _intake_entry(plan, pp, pid, depth, map_row, cand, pending)
+        if not cand.any():
+            n_dead += 1
+            continue
+        if pending:
+            j0 = (pending & -pending).bit_length() - 1
+            t = int(map_row[int(plan.parent_pos[depth, j0])])
+            pools[int(np.searchsorted(pp.node_start, t, side="right") - 1)].append(
+                (depth, map_row, cand, pending))
+            continue
+        sd.append(depth)
+        sm.append(map_row)
+        sc.append(cand)
+    return (
+        np.asarray(sd, dtype=np.int32),
+        np.asarray(sm, dtype=np.int32).reshape(len(sm), plan.p_pad),
+        np.asarray(sc, dtype=np.uint32).reshape(len(sc), plan.w),
+        n_dead,
+    )
+
+
+def _drain_spill(spill: SpillState):
+    """Every worker's spill-ring entries as host tuples ``(depth, map,
+    cand, pending, part)``, ``cand`` as ``uint32`` words (slots past
+    ``sp_size`` are stale and not read)."""
+    d_, m_, c_, pe_, pa_, sz_ = (t.cpu().numpy() for t in (
+        spill.sp_depth, spill.sp_map, spill.sp_cand, spill.sp_pending, spill.sp_part,
+        spill.sp_size))
+    c_ = c_.view(np.uint32)
+    return [(int(d_[v, i]), m_[v, i].copy(), c_[v, i].copy(), int(pe_[v, i]), int(pa_[v, i]))
+            for v in range(sz_.shape[0]) for i in range(int(sz_[v]))]
+
+
+_PART_MAX_ATTEMPTS = 4
+
+
+def partition_root_entries(plan: SearchPlan, cfg: EngineConfig, pp):
+    """Root pool entries for the partitioned scheduling loop, in partition and row
+    order: ``[(part, (depth, map_row, cand, pending)), ...]``.
+
+    Under vertex seeding each partition gets **one** entry ``(0, [-1 ...],
+    dom[0] ∩ its rows, 0)``, so roots are enumerated while their own rows
+    are resident.  Under edge seeding the plan's seed arcs
+    (`repro_torch.core.frontier.root_seed_entries`) become depth-1 entries
+    of the partition owning ``map[0]``, with no pending parents (position
+    1's constraints all reference position 0 and are applied on the host
+    when the seeds are built)."""
+    mode = cfg.root_seeding
+    if mode == "auto":
+        mode = "edge" if plan.seed_edge is not None else "vertex"
+    entries = []
+    if mode == "edge":
+        if plan.seed_edge is None:
+            raise ValueError(
+                "root_seeding='edge' requires a plan built with seed_edge= "
+                "(plan.seed_edge is unset; see repro_torch.core.plan.build_plan)"
+            )
+        sd, sm, sc = frontier.root_seed_entries(plan)
+        for i in range(sd.shape[0]):
+            part = int(np.searchsorted(pp.node_start, int(sm[i, 0]), side="right") - 1)
+            entries.append((part, (int(sd[i]), sm[i].copy(), sc[i].copy(), 0)))
+        return entries
+    if not plan.satisfiable:
+        return entries
+    m0 = np.full(plan.p_pad, -1, dtype=np.int32)
+    for pid in range(pp.n_parts):
+        lo, hi = int(pp.node_start[pid]), int(pp.node_start[pid + 1])
+        if hi <= lo:
+            continue
+        cand = plan.dom_bits[0] & bitmap_from_indices(np.arange(lo, hi), plan.n_t, plan.w)
+        if cand.any():
+            entries.append((pid, (0, m0.copy(), cand, 0)))
+    return entries
+
+
+def run_partitioned(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None,
+                    stats: Optional[dict] = None) -> EngineResult:
+    """Enumerate ``plan`` against a row-partitioned target streamed through
+    device memory, on ``device`` (default: the CUDA card; raises without
+    one): the host scheduling loop of the out-of-core path.
+
+    ``cfg.n_partitions`` partitions (0 → 1; with 1 no extension leaves the
+    resident range, which is the csr backend's search) are visited: the
+    resident one is enumerated to quiescence in *legs* (seed → round loop
+    to drain, with host ring drains at the spill watermark), then the
+    partition with the deepest spill pool is swapped in and re-seeded from
+    its pool.  A stack or spill-ring overflow retries the leg with that
+    capacity doubled, at most :data:`_PART_MAX_ATTEMPTS` times.
+
+    ``stats``, if given, is filled with ``repro``'s scheduling counters
+    (resident bytes, visits, legs, rounds, spills, deaths).  ``mesh=`` is
+    not ported yet."""
+    _refuse_mesh(mesh)
+    device = resolve_device(device)
+    if cfg.step_backend != "partitioned":
+        cfg = dataclasses.replace(cfg, step_backend="partitioned")
+    n_parts = max(1, cfg.n_partitions)
+    pp = extend.plan_partitions(plan, n_parts)
+    p_pad, w, v = plan.p_pad, plan.w, cfg.n_workers
+    mcap = max(1, cfg.collect_matches)
+
+    pools = [[] for _ in range(n_parts)]
+    leg_cfg = cfg
+    totals = dict(matches=0, states=0, steps=0, steals=0, steal_rounds=0,
+                  steal_depth=0, exp_depth=0)
+    pw_states = np.zeros(v, dtype=np.int64)
+    pw_matches = np.zeros(v, dtype=np.int64)
+    pw_steals = np.zeros(v, dtype=np.int64)
+    match_rows = []
+    n_visits = n_legs = n_rounds = n_spilled = n_dead = 0
+    max_pool = 0
+
+    def run_leg(arrays, seed):
+        """One leg: seed → round loop to quiescence, draining the rings at
+        the watermark; retries with a doubled capacity on overflow.
+        Returns the final state and the leg's drained spill entries."""
+        nonlocal leg_cfg, n_rounds
+        for _ in range(_PART_MAX_ATTEMPTS):
+            st = frontier.init_delta_state(plan, leg_cfg, *seed, device)
+            spill = frontier.init_spill_state(v, leg_cfg.resolved_spill_cap(p_pad), p_pad, w,
+                                              device)
+            staged = []
+            while True:
+                st, spill = _part_engine_loop(leg_cfg, arrays, st, spill)
+                n_rounds += 1
+                if bool(st.overflow.any()):
+                    leg_cfg = dataclasses.replace(
+                        leg_cfg, stack_cap=2 * leg_cfg.resolved_stack_cap(p_pad))
+                    break
+                if bool(spill.sp_overflow):
+                    leg_cfg = dataclasses.replace(
+                        leg_cfg, spill_cap=2 * leg_cfg.resolved_spill_cap(p_pad))
+                    break
+                staged.extend(_drain_spill(spill))
+                spill = spill._replace(sp_size=torch.zeros_like(spill.sp_size))
+                max_steps = leg_cfg.max_steps or (1 << 30)
+                if int(st.size.sum()) == 0 or int(st.steps[0]) >= max_steps:
+                    return st, staged
+        raise RuntimeError(
+            f"partitioned leg kept overflowing after {_PART_MAX_ATTEMPTS} "
+            f"capacity doublings (stack_cap={leg_cfg.stack_cap}, "
+            f"spill_cap={leg_cfg.spill_cap})"
+        )
+
+    def absorb(st, staged):
+        """Fold a finished leg into the run's totals and commit its spills."""
+        nonlocal n_spilled, max_pool
+        st = EngineState(*(x[0] for x in st))  # the query's pack lane
+
+        def host(t):
+            return t.cpu().numpy().astype(np.int64)
+
+        totals["matches"] += int(st.matches.sum())
+        totals["states"] += int(st.states.sum())
+        totals["steps"] += int(st.steps)
+        totals["steals"] += int(st.steals.sum())
+        totals["steal_rounds"] += int(st.steal_rounds)
+        totals["steal_depth"] += int(st.steal_depth.sum())
+        totals["exp_depth"] += int(st.exp_depth.sum())
+        pw_states[:] += host(st.states)
+        pw_matches[:] += host(st.matches)
+        pw_steals[:] += host(st.steals)
+        if cfg.collect_matches:
+            m = st.matches.cpu().numpy()
+            buf = st.match_buf.cpu().numpy()
+            for v_ in range(v):
+                k = min(int(m[v_]), mcap)
+                if k:
+                    match_rows.append(buf[v_, :k])
+        for depth, map_row, cand, pending, part in staged:
+            pools[part].append((depth, map_row, cand, pending))
+        n_spilled += len(staged)
+        max_pool = max(max_pool, max((len(p) for p in pools), default=0))
+
+    # roots enter through the pools, each batch owned by the partition whose
+    # rows it maps, so a partition's first leg extends against its own rows
+    for part, entry in partition_root_entries(plan, cfg, pp):
+        pools[part].append(entry)
+
+    current = next((pid for pid in range(n_parts) if pools[pid]), None)
+    while current is not None:
+        arrays = extend.make_part_plan_arrays(plan, pp, current, device)
+        n_visits += 1
+        while True:
+            chunk_n = v * max(leg_cfg.resolved_stack_cap(p_pad) // 2, 1)
+            sd, sm, sc, dead = _intake_chunk(plan, pp, current, pools, chunk_n)
+            n_dead += dead
+            if sd.shape[0] == 0:
+                if pools[current]:
+                    continue  # the chunk was all dead or re-routed; keep draining
+                break  # the partition is quiescent
+            absorb(*run_leg(arrays, (sd, sm, sc)))
+            n_legs += 1
+        # the deepest spill pool next
+        nxt, depth_best = None, 0
+        for pid in range(n_parts):
+            if len(pools[pid]) > depth_best:
+                nxt, depth_best = pid, len(pools[pid])
+        current = nxt
+
+    if stats is not None:
+        stats.update(
+            n_parts=n_parts,
+            visits=n_visits,
+            legs=n_legs,
+            rounds=n_rounds,
+            spilled=n_spilled,
+            dead_spills=n_dead,
+            max_pool=max_pool,
+            cut_edges=pp.cut_edges,
+            resident_plane_bytes=extend.part_resident_nbytes(pp),
+            per_part_nbytes=[p.nbytes for p in pp.parts],
+            final_stack_cap=leg_cfg.resolved_stack_cap(p_pad),
+            final_spill_cap=leg_cfg.resolved_spill_cap(p_pad),
+        )
+
+    match_buf = None
+    if cfg.collect_matches:
+        rows = (np.concatenate(match_rows, axis=0) if match_rows
+                else np.zeros((0, p_pad), np.int32))
+        match_buf = np.full((1, max(1, rows.shape[0]), p_pad), -1, np.int32)
+        match_buf[0, : rows.shape[0]] = rows
+
+    steals = totals["steals"]
+    states = totals["states"]
+    return EngineResult(
+        matches=totals["matches"],
+        states=states,
+        steps=totals["steps"],
+        steals=steals,
+        steal_rounds=totals["steal_rounds"],
+        mean_steal_depth=(totals["steal_depth"] / steals) if steals else 0.0,
+        mean_expand_depth=(totals["exp_depth"] / states) if states else 0.0,
+        per_worker_states=pw_states,
+        per_worker_matches=pw_matches,
+        overflow=False,
+        match_buf=match_buf,
+        per_worker_steals=pw_steals,
     )

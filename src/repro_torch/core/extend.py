@@ -7,8 +7,7 @@ bitmap ``dom[pos+1] ∧ ¬used' ∧ ⋀ adj_rows(mapped parents)`` (the paper's
 check-consistency-before-spawning rule, §3.1), and flag matches at full
 depth.  The step flattens all ``V·expand_width`` lanes into one batch, so a
 kernel sees one launch of ``V·expand_width`` blocks.  A port of
-``repro.core.extend`` (all but the out-of-core partitioned backend); the
-backend names are ``repro``'s:
+``repro.core.extend``; the backend names are ``repro``'s:
 
 * ``"jnp"`` — :class:`JnpStepBackend`, plain PyTorch ops; with
   ``EngineConfig.use_pallas`` the candidate AND goes through the
@@ -27,6 +26,14 @@ backend names are ``repro``'s:
 All are bit-identical on every :class:`StepLanes` field the engine
 consumes.  On CPU tensors the kernels run their plain versions.
 
+``"partitioned"`` — :class:`PartitionedCsrStepBackend`, the out-of-core
+step over one resident row partition of the target
+(:class:`PartPlanArrays`): the csr walk (K7 / K6 with ``use_pallas``) with
+the parents whose rows are not resident left out, so a child that still
+owes them an intersection is flagged for the spill ring
+(:func:`make_partitioned_step_fn`).  It is not a drop-in backend: only
+``repro_torch.core.engine.run_partitioned`` drives it.
+
 A step covers a whole **pack** of queries that share one target
 (`repro_torch.core.frontier`): their plan arrays are stacked along the
 position axis (:func:`make_pack_arrays`, :func:`make_csr_pack_arrays`),
@@ -43,9 +50,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import frontier
-from repro_torch.core.frontier import EngineState
+from repro_torch.core.frontier import EngineState, SpillState
 from repro_torch.core.graph import (
-    WORD_BITS, CsrPlanes, bitmap_from_indices, csr_planes_from_bitmaps, deg_bucket_caps,
+    WORD_BITS, CsrPlanes, PartitionedPlanes, bitmap_from_indices, csr_planes_from_bitmaps,
+    deg_bucket_caps, partition_csr_planes,
 )
 from repro_torch.core.plan import SearchPlan
 from repro_torch.kernels import ops as kops
@@ -55,13 +63,9 @@ from repro_torch.kernels.ref import lowest_bit
 if TYPE_CHECKING:  # engine imports extend
     from repro_torch.core.engine import EngineConfig
 
+# the drop-in step backends; EngineConfig also takes "auto" and
+# "partitioned" (run only by engine.run_partitioned), as in repro
 STEP_BACKENDS = ("jnp", "pallas", "csr")
-
-# step backends of ``repro`` that a later slice of the port brings, with the
-# ROADMAP item that does
-LATER_STEP_BACKENDS = {
-    "partitioned": "ROADMAP Queue 1 item 9 (out-of-core)",
-}
 
 # "auto" resolution threshold: beyond this many target nodes the dense
 # [n_elab, 2, n_t, w] bitmaps cost O(n_t²/32) words (PDBSv1's 33,067
@@ -196,9 +200,6 @@ class CsrPlanArrays(NamedTuple):
     n_p_max: int
 
 
-AnyPlanArrays = Union[PlanArrays, CsrPlanArrays]
-
-
 def _pad_deg_cap(deg_cap: int) -> int:
     """Segment-walk width: max row degree snapped up to a multiple of 8
     (min 8), as ``repro`` pads it."""
@@ -266,6 +267,141 @@ def make_csr_pack_arrays(plans: Sequence[SearchPlan], device,
                          **stacked)
 
 
+# ---------------------------------------------------------------------------
+# partitioned plan arrays (out-of-core targets)
+# ---------------------------------------------------------------------------
+
+class PartPlanArrays(NamedTuple):
+    """Device-resident plan arrays of one query for **one resident
+    partition** of a row-partitioned target (:class:`PartitionedPlanes`).
+
+    :class:`CsrPlanArrays` with the plane rows restricted to the resident
+    partition: ``indptr`` is over partition-**local** rows (global row
+    ``t`` is local row ``t - part_lo``); ``indices`` keep **global** column
+    ids.  Every partition of a target is padded to the same shapes
+    (``max_local`` rows, ``max_nnz`` entries), as ``repro`` pads them for
+    one compile.  ``part_lo`` / ``part_hi`` bound the resident global rows
+    and ``part_starts`` routes spill entries to the partition owning their
+    first pending parent."""
+
+    order_valid: torch.Tensor  # [p_pad] bool
+    parent_pos: torch.Tensor  # [p_pad, mp] int32
+    parent_dir: torch.Tensor  # [p_pad, mp] int32
+    parent_elab: torch.Tensor  # [p_pad, mp] int32
+    dom_bits: torch.Tensor  # [p_pad, w] int32
+    indptr: torch.Tensor  # [n_planes, max_loc_pad + 1] int32, local rows
+    indices: torch.Tensor  # [nnz_pad + deg_cap] int32, global columns
+    deg_cap: int  # padded max row length over all partitions
+    part_starts: torch.Tensor  # [n_parts + 1] int32 global row boundaries
+    part_lo: int  # resident range start (global row)
+    part_hi: int  # resident range end (exclusive)
+    n_p: torch.Tensor  # [1] int32
+    p_pad: int
+    n_p_max: int
+
+
+AnyPlanArrays = Union[PlanArrays, CsrPlanArrays, PartPlanArrays]
+
+
+def _pad_rows(n: int) -> int:
+    """Local-row shape bucket (multiples of 64, min 64), as ``repro`` pads
+    it so all partitions of a target share one shape."""
+    return max(64, ((n + 63) // 64) * 64)
+
+
+def _partition_cache(plan: SearchPlan) -> dict:
+    cache = getattr(plan, "_partitions", None)
+    if cache is None:
+        cache = plan._partitions = {}
+    return cache
+
+
+def plan_partitions(plan: SearchPlan, n_parts: int) -> PartitionedPlanes:
+    """The plan's target partitioning at ``n_parts``, computed once and
+    cached on the plan (partitioning is O(nnz) host work per count)."""
+    cache = _partition_cache(plan)
+    pp = cache.get(n_parts)
+    if pp is None:
+        pp = cache[n_parts] = partition_csr_planes(plan_csr(plan), n_parts=n_parts)
+    return pp
+
+
+def plan_partitions_budget(plan: SearchPlan, max_bytes: int) -> PartitionedPlanes:
+    """Partitioning at the smallest count whose **padded** resident plane
+    arrays (:func:`part_resident_nbytes`, what the device holds) fit
+    ``max_bytes``; cached on the plan under both the budget and the
+    resulting count, so ``plan_partitions(plan, pp.n_parts)`` returns the
+    same object."""
+    cache = _partition_cache(plan)
+    key = ("budget", int(max_bytes))
+    pp = cache.get(key)
+    if pp is None:
+        cp = plan_csr(plan)
+        pp = partition_csr_planes(cp, max_bytes=max_bytes)
+        while part_resident_nbytes(pp) > max_bytes and pp.n_parts < cp.n_t:
+            pp = partition_csr_planes(cp, n_parts=pp.n_parts + 1)
+        if part_resident_nbytes(pp) > max_bytes:
+            raise ValueError(
+                f"memory_budget_bytes={max_bytes} cannot hold even a "
+                f"single-row partition's padded planes "
+                f"({part_resident_nbytes(pp)} bytes at n_parts={pp.n_parts})"
+            )
+        cache[key] = pp
+        cache.setdefault(pp.n_parts, pp)
+    return pp
+
+
+def partitioned_shape_bucket(plan: SearchPlan, n_parts: int) -> Tuple[int, ...]:
+    """``(n_parts, max_loc_pad, nnz_pad, *bucket_caps)``: the partition
+    identity ``repro``'s session folds into its compile-cache and coalesce
+    keys (the trailing entries are the pow2 degree-bucket ladder, as in
+    :func:`csr_shape_bucket`)."""
+    pp = plan_partitions(plan, n_parts)
+    return (
+        pp.n_parts,
+        _pad_rows(pp.max_local),
+        _pad_nnz(pp.max_nnz),
+    ) + deg_bucket_caps(_pad_deg_cap(pp.deg_cap))
+
+
+def part_resident_nbytes(pp: PartitionedPlanes) -> int:
+    """Device bytes of one resident partition's padded plane arrays
+    (``indptr`` + ``indices`` + ``part_starts``), what the memory budget
+    bounds; slightly above ``PartitionedPlanes.max_resident_nbytes``
+    because of the shared-shape padding."""
+    max_loc_pad = _pad_rows(pp.max_local)
+    nnz_pad = _pad_nnz(pp.max_nnz)
+    deg_cap = _pad_deg_cap(pp.deg_cap)
+    return 4 * (pp.n_planes * (max_loc_pad + 1) + nnz_pad + deg_cap + pp.n_parts + 1)
+
+
+def make_part_plan_arrays(plan: SearchPlan, pp: PartitionedPlanes, pid: int,
+                          device) -> PartPlanArrays:
+    """Upload ``plan`` with partition ``pid`` of ``pp`` resident, on
+    ``device``.  All partitions pad to common shapes (see
+    :class:`PartPlanArrays`): padded local rows repeat the plane's end
+    offset (zero-length rows), padded ``indices`` entries are
+    :data:`CSR_SENTINEL`."""
+    part = pp.parts[pid]
+    max_loc_pad = _pad_rows(pp.max_local)
+    deg_cap = _pad_deg_cap(pp.deg_cap)
+    n_loc = part.n_t
+    indptr = np.zeros((pp.n_planes, max_loc_pad + 1), dtype=np.int32)
+    indptr[:, : n_loc + 1] = part.indptr
+    indptr[:, n_loc + 1 :] = part.indptr[:, -1:]
+    indices = np.full(_pad_nnz(pp.max_nnz) + deg_cap, CSR_SENTINEL, dtype=np.int32)
+    indices[: part.nnz] = part.indices
+    return PartPlanArrays(
+        indptr=torch.from_numpy(indptr).to(device),
+        indices=torch.from_numpy(indices).to(device),
+        deg_cap=deg_cap,
+        part_starts=torch.from_numpy(pp.node_start.astype(np.int32)).to(device),
+        part_lo=int(pp.node_start[pid]),
+        part_hi=int(pp.node_start[pid + 1]),
+        **_stack_plans([plan], device),
+    )
+
+
 def is_csr_only(plan: SearchPlan) -> bool:
     """True for plans built by ``build_csr_plan``: the dense adjacency was
     never materialized, so only the csr layout can run them."""
@@ -288,8 +424,7 @@ def validate_backend_for_plan(cfg: "EngineConfig", plan: SearchPlan) -> None:
             f"step_backend={cfg.step_backend!r} is a dense backend, but the "
             "plan is CSR-only (layout: csr — built by build_csr_plan, so "
             "dense adj_bits were never materialized); valid backends for "
-            "this plan are 'csr' or 'auto' ('partitioned' once ROADMAP "
-            "Queue 1 item 9 is ported)"
+            "this plan are 'csr', 'auto', or 'partitioned'"
         )
 
 
@@ -301,6 +436,12 @@ def plan_arrays_for(cfg: "EngineConfig", plans: Sequence[SearchPlan], device,
     for its first plan (a pack shares one target, so one resolution).
     ``rows`` / ``csr`` pass the target already uploaded in that layout."""
     resolved = resolve_step_backend_for_plan(cfg, plans[0])
+    if resolved == "partitioned":
+        raise ValueError(
+            "step_backend='partitioned' builds per-partition arrays inside "
+            "repro_torch.core.engine.run_partitioned (one PartPlanArrays per "
+            "swap), not one plan-array set"
+        )
     if resolved == "csr":
         return make_csr_pack_arrays(plans, device, csr=csr)
     if is_csr_only(plans[0]):
@@ -572,18 +713,20 @@ class CsrStepBackend(_PackLanes):
         length = plan.indptr[plane, t + 1] - start
         return start, torch.where(pp >= 0, length, -1).to(torch.int32)
 
-    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+    def _expand(self, depth, map_, used, cand) -> Tuple[StepLanes, tuple]:
+        """The step's lanes, and what :meth:`_segments` returns beyond the
+        segment bounds."""
         plan = self.plan
         valid, v, _ = pop_lowest_bit(cand)
         map2, used2 = _extend_payload(depth, map_, used, valid, v, self.p_pad, self.w)
         child_row = self.rows_at(depth + 1)
-        start, length = self._segments(child_row, map2)
+        start, length, *route = self._segments(child_row, map2)
         cand2, child, meta = self._step(
             plan.indices, plan.dom_bits, start, length, child_row.to(torch.int32),
             (depth + self.depth_shift).to(torch.int32), plan.n_p_max, used, cand,
             deg_cap=plan.deg_cap,
         )
-        return StepLanes(
+        lanes = StepLanes(
             valid=meta[:, 0] != 0,
             v=meta[:, 1],
             is_match=meta[:, 2] != 0,
@@ -593,12 +736,95 @@ class CsrStepBackend(_PackLanes):
             used2=used2,
             child_cand=child,
         )
+        return lanes, tuple(route)
+
+    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+        return self._expand(depth, map_, used, cand)[0]
+
+
+class PartStepLanes(NamedTuple):
+    """:class:`StepLanes` plus the spill routing of a partitioned step.
+    ``lanes.has_child`` is narrowed to *live* children (every real parent
+    resident and applied); ``spill`` flags children whose partial
+    candidates survived but still owe intersections to non-resident
+    parents."""
+
+    lanes: StepLanes
+    spill: torch.Tensor  # [B] bool — child parked for a non-resident partition
+    pending: torch.Tensor  # [B] int32 bitmask of unapplied parent slots
+    spill_part: torch.Tensor  # [B] int32 partition of the first pending parent (-1)
+
+
+class PartitionedCsrStepBackend(CsrStepBackend):
+    """The out-of-core step: candidates are intersected with the rows of
+    the parents **resident** in the swapped-in partition; the other
+    parents go into a per-child ``pending`` bitmask and the child is
+    flagged for the spill ring instead of the live stack.
+
+    The walk is :class:`CsrStepBackend`'s — K7 or K6 with ``use_pallas`` —
+    with non-resident parent slots given segment length ``-1`` like unused
+    ones, so the lead is the first resident parent and membership is
+    tested in resident segments only; a lane with no resident parent gets
+    ``dom ∧ ¬used``.  The partial candidate set over-approximates the
+    child's, and the host finishes it at intake when the pending parents'
+    partitions are resident.  Only fully constrained entries reach a live
+    stack, so the match set equals the monolithic run's."""
+
+    name = "partitioned"
+
+    def __init__(self, cfg: "EngineConfig", plan: PartPlanArrays):
+        super().__init__(cfg, plan)  # n_t: the padded local row count
+        self.n_parts = plan.part_starts.shape[0] - 1
+
+    def _segments(self, row: torch.Tensor, map2: torch.Tensor):
+        """Resident-masked segment bounds plus spill routing: ``(start,
+        length, pending, spill_part)``, length ``-1`` on unused and on
+        non-resident parent slots."""
+        plan = self.plan
+        r = row.long()
+        pp, pd, pe = plan.parent_pos[r], plan.parent_dir[r], plan.parent_elab[r]
+        real = pp >= 0
+        t = torch.where(real, map2.gather(1, pp.clamp_min(0).long()), 0)
+        resident = real & (t >= plan.part_lo) & (t < plan.part_hi)
+        t_loc = (t - plan.part_lo).clamp(0, self.n_t - 1).long()
+        plane = (pe * 2 + pd).clamp(0, self.n_planes - 1).long()
+        start = plan.indptr[plane, t_loc]
+        length = torch.where(resident, plan.indptr[plane, t_loc + 1] - start, -1)
+
+        pend = (real & ~resident).to(torch.int32)
+        slot_bit = 1 << torch.arange(pend.shape[1], dtype=torch.int32, device=pend.device)
+        pending = (pend * slot_bit).sum(dim=1, dtype=torch.int32)
+        first = pend.argmax(dim=1, keepdim=True)  # the first pending slot (0 if none)
+        t_first = t.gather(1, first)[:, 0].to(torch.int32).contiguous()
+        spill_part = torch.searchsorted(plan.part_starts, t_first, right=True).to(torch.int32) - 1
+        spill_part = torch.where(pending != 0, spill_part, -1)
+        return start, length.to(torch.int32), pending, spill_part
+
+    def expand_lanes_part(self, depth, map_, used, cand) -> PartStepLanes:
+        lanes, (pending, spill_part) = self._expand(depth, map_, used, cand)
+        # the walk's has_child: a child is wanted and its partial
+        # candidates are non-empty
+        survived = lanes.has_child
+        return PartStepLanes(lanes=lanes._replace(has_child=survived & (pending == 0)),
+                             spill=survived & (pending != 0), pending=pending,
+                             spill_part=spill_part)
+
+    def expand_lanes(self, depth, map_, used, cand) -> StepLanes:
+        return self.expand_lanes_part(depth, map_, used, cand).lanes
 
 
 def make_step_backend(cfg: "EngineConfig", plan: AnyPlanArrays) -> StepBackend:
     """Backend for ``cfg`` over ``plan``; the array layout must match the
     resolved backend (:func:`plan_arrays_for` guarantees it; ``"auto"``
     resolves by layout here)."""
+    if isinstance(plan, PartPlanArrays):
+        if cfg.step_backend != "partitioned":
+            raise ValueError(f"step_backend={cfg.step_backend!r} cannot run PartPlanArrays")
+        return PartitionedCsrStepBackend(cfg, plan)
+    if cfg.step_backend == "partitioned":
+        raise ValueError("step_backend='partitioned' needs PartPlanArrays "
+                         "(build them with make_part_plan_arrays; run via "
+                         "repro_torch.core.engine.run_partitioned)")
     if isinstance(plan, CsrPlanArrays):
         if cfg.step_backend not in ("csr", "auto"):
             raise ValueError(f"step_backend={cfg.step_backend!r} cannot run CsrPlanArrays")
@@ -629,73 +855,103 @@ def make_step_fn(cfg: "EngineConfig", plan: AnyPlanArrays):
     (and the step updates in place) the stack tensors of the state it was
     given."""
     backend = make_step_backend(cfg, plan)
-    e = cfg.expand_width
 
     def step(st: EngineState, active: Optional[torch.Tensor] = None) -> EngineState:
-        n_lanes, v_q, s_cap = st.st_depth.shape
-        v_loc = n_lanes * v_q  # the pack's workers as one flat axis (views)
-        st_depth, st_map, st_used, st_cand = (
-            x.flatten(0, 1) for x in (st.st_depth, st.st_map, st.st_used, st.st_cand))
-        size = st.size.flatten()
-        pop = frontier.pop_top_k(
-            st_depth, st_map, st_used, st_cand,
-            st.base.flatten(), size, e, store_used=cfg.store_used,
-            active=None if active is None else active.repeat_interleave(v_q),
-        )
-
-        b = v_loc * e
-        lanes = backend.expand_lanes(
-            pop.depth.reshape(b),
-            pop.map.reshape(b, -1),
-            pop.used.reshape(b, -1),
-            pop.cand.reshape(b, -1),
-        )
-
-        def sh(x):
-            return x.reshape((v_loc, e) + x.shape[1:])
-
-        valid = sh(lanes.valid) & pop.lane_on
-        is_match = sh(lanes.is_match) & pop.lane_on
-        has_child = sh(lanes.has_child) & pop.lane_on
-        cand2, map2, used2, child_cand = (
-            sh(x) for x in (lanes.cand2, lanes.map2, lanes.used2, lanes.child_cand)
-        )
-
-        def per_worker(x):
-            return x.sum(dim=1, dtype=torch.int32).view(n_lanes, v_q)
-
-        states = st.states + per_worker(valid)
-        exp_depth = st.exp_depth + per_worker(torch.where(valid, pop.depth, 0))
-        matches = st.matches + per_worker(is_match)
-
-        if cfg.collect_matches > 0:
-            # the step's m-th match of a worker goes to ring slot
-            # (matches + m) % mcap of its match buffer
-            mbuf = st.match_buf.flatten(0, 1)
-            mcap = mbuf.shape[1]
-            m_int = is_match.to(torch.int32)
-            m_prefix = torch.cumsum(m_int, dim=1).to(torch.int32) - m_int
-            n_out = min(e, mcap)
-            src, take = frontier.invert_slots(torch.where(is_match, m_prefix, -1), n_out)
-            vidx = torch.arange(v_loc, device=src.device)[:, None]
-            slots = (st.matches.flatten()[:, None]
-                     + torch.arange(n_out, device=src.device)[None, :]) % mcap
-            frontier.write_slots(mbuf, vidx, slots, map2[vidx, src], take)
-
-        parent_keep = pop.lane_on & (cand2 != 0).any(dim=-1)
-        new_size = frontier.push_entries(
-            st_depth, st_map, st_used, st_cand, st.base.flatten(), size,
-            pop.k, parent_keep, has_child,
-            pop.depth, pop.map, pop.used, cand2,
-            pop.depth + 1, map2, used2, child_cand,
-            store_used=cfg.store_used,
-        ).view(n_lanes, v_q)
-        overflow = st.overflow | frontier.overflowed(new_size, s_cap)
-        if active is not None:  # a frozen lane keeps its flag, as its stacks
-            overflow = torch.where(active, overflow, st.overflow)
-        return st._replace(
-            size=new_size, matches=matches, states=states,
-            exp_depth=exp_depth, overflow=overflow,
-        )
+        return _step(cfg, backend, st, active)[0]
 
     return step
+
+
+def make_partitioned_step_fn(cfg: "EngineConfig", plan: PartPlanArrays):
+    """The partitioned expansion step ``(EngineState, SpillState) ->
+    (EngineState, SpillState)`` of one query: :func:`make_step_fn`'s pop →
+    expand → counters → push, with the children that owe intersections to
+    non-resident partitions pushed to their worker's spill ring instead of
+    the live stack.  Updates both states' tensors in place."""
+    backend = PartitionedCsrStepBackend(cfg, plan)
+
+    def step(st: EngineState, spill: SpillState) -> Tuple[EngineState, SpillState]:
+        return _step(cfg, backend, st, None, spill)
+
+    return step
+
+
+def _step(cfg: "EngineConfig", backend, st: EngineState, active: Optional[torch.Tensor],
+          spill: Optional[SpillState] = None) -> Tuple[EngineState, Optional[SpillState]]:
+    """One expansion step of every lane of a pack, and, given ``spill``
+    (a partitioned step of one query), its spill-ring pushes."""
+    e = cfg.expand_width
+    n_lanes, v_q, s_cap = st.st_depth.shape
+    v_loc = n_lanes * v_q  # the pack's workers as one flat axis (views)
+    st_depth, st_map, st_used, st_cand = (
+        x.flatten(0, 1) for x in (st.st_depth, st.st_map, st.st_used, st.st_cand))
+    size = st.size.flatten()
+    pop = frontier.pop_top_k(
+        st_depth, st_map, st_used, st_cand,
+        st.base.flatten(), size, e, store_used=cfg.store_used,
+        active=None if active is None else active.repeat_interleave(v_q),
+    )
+
+    b = v_loc * e
+    popped = (pop.depth.reshape(b), pop.map.reshape(b, -1), pop.used.reshape(b, -1),
+              pop.cand.reshape(b, -1))
+    if spill is None:
+        lanes = backend.expand_lanes(*popped)
+    else:
+        part = backend.expand_lanes_part(*popped)
+        lanes = part.lanes
+
+    def sh(x):
+        return x.reshape((v_loc, e) + x.shape[1:])
+
+    valid = sh(lanes.valid) & pop.lane_on
+    is_match = sh(lanes.is_match) & pop.lane_on
+    has_child = sh(lanes.has_child) & pop.lane_on
+    cand2, map2, used2, child_cand = (
+        sh(x) for x in (lanes.cand2, lanes.map2, lanes.used2, lanes.child_cand)
+    )
+
+    def per_worker(x):
+        return x.sum(dim=1, dtype=torch.int32).view(n_lanes, v_q)
+
+    states = st.states + per_worker(valid)
+    exp_depth = st.exp_depth + per_worker(torch.where(valid, pop.depth, 0))
+    matches = st.matches + per_worker(is_match)
+
+    if cfg.collect_matches > 0:
+        # the step's m-th match of a worker goes to ring slot
+        # (matches + m) % mcap of its match buffer
+        mbuf = st.match_buf.flatten(0, 1)
+        mcap = mbuf.shape[1]
+        m_int = is_match.to(torch.int32)
+        m_prefix = torch.cumsum(m_int, dim=1).to(torch.int32) - m_int
+        n_out = min(e, mcap)
+        src, take = frontier.invert_slots(torch.where(is_match, m_prefix, -1), n_out)
+        vidx = torch.arange(v_loc, device=src.device)[:, None]
+        slots = (st.matches.flatten()[:, None]
+                 + torch.arange(n_out, device=src.device)[None, :]) % mcap
+        frontier.write_slots(mbuf, vidx, slots, map2[vidx, src], take)
+
+    if spill is not None:
+        spill = frontier.push_spill(
+            spill, sh(part.spill) & pop.lane_on,
+            pop.depth + 1, map2, child_cand, sh(part.pending), sh(part.spill_part),
+        )
+
+    parent_keep = pop.lane_on & (cand2 != 0).any(dim=-1)
+    new_size = frontier.push_entries(
+        st_depth, st_map, st_used, st_cand, st.base.flatten(), size,
+        pop.k, parent_keep, has_child,
+        pop.depth, pop.map, pop.used, cand2,
+        pop.depth + 1, map2, used2, child_cand,
+        store_used=cfg.store_used,
+    ).view(n_lanes, v_q)
+    overflow = st.overflow | frontier.overflowed(new_size, s_cap)
+    if active is not None:  # a frozen lane keeps its flag, as its stacks
+        overflow = torch.where(active, overflow, st.overflow)
+    st = st._replace(
+        size=new_size, matches=matches, states=states,
+        exp_depth=exp_depth, overflow=overflow,
+    )
+    return st, spill
+

@@ -18,6 +18,10 @@ one lane per query of a pack (``repro`` vmaps its engine over packs
 instead).  A single query is a pack of one.  :func:`pop_top_k` and
 :func:`push_entries` see the ``L·V`` workers of a pack as one flat worker
 axis; only the steal round keeps the lanes apart.
+
+The out-of-core step (``step_backend="partitioned"``, one query) also
+parks partially constrained children in per-worker **spill rings**
+(:class:`SpillState`, :func:`push_spill`), which the host drains.
 """
 
 from __future__ import annotations
@@ -92,6 +96,86 @@ def write_slots(dst: torch.Tensor, ridx: torch.Tensor, slots: torch.Tensor,
     old = dst[ridx, slots]
     mask = take.reshape(take.shape + (1,) * (values.dim() - take.dim()))
     dst[ridx, slots] = torch.where(mask, values, old)
+
+
+class SpillState(NamedTuple):
+    """Per-worker ring of entries parked for a non-resident partition (the
+    out-of-core step; one query, so no pack axis).
+
+    A spill entry is a child whose candidate bitmap is only *partially*
+    constrained: ``sp_pending`` bit ``j`` set means parent slot ``j``'s
+    adjacency row lives outside the resident partition and has not been
+    intersected yet.  ``sp_part`` is the partition of the first pending
+    parent: the host drains the rings into per-partition pools.  The
+    used-bitmap is not stored (intake rebuilds it from the mapping).
+    ``sp_overflow`` latches when a push would pass the capacity; the
+    round loop yields for a drain well before that (:func:`spill_watermark`)."""
+
+    sp_depth: torch.Tensor  # [V, C] int32
+    sp_map: torch.Tensor  # [V, C, P] int32
+    sp_cand: torch.Tensor  # [V, C, W] int32 partially constrained candidates
+    sp_pending: torch.Tensor  # [V, C] int32 bitmask of unapplied parent slots
+    sp_part: torch.Tensor  # [V, C] int32 partition owning the first pending parent
+    sp_size: torch.Tensor  # [V] int32
+    sp_overflow: torch.Tensor  # [] bool — a push passed the capacity
+
+
+def init_spill_state(v: int, spill_cap: int, p_pad: int, w: int, device) -> SpillState:
+    def full(shape, value=0, dtype=torch.int32):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    return SpillState(
+        sp_depth=full((v, spill_cap)),
+        sp_map=full((v, spill_cap, p_pad), -1),
+        sp_cand=full((v, spill_cap, w)),
+        sp_pending=full((v, spill_cap)),
+        sp_part=full((v, spill_cap), -1),
+        sp_size=full((v,)),
+        sp_overflow=full((), False, torch.bool),
+    )
+
+
+def push_spill(
+    spill: SpillState,
+    flags: torch.Tensor,  # [V, E] lanes that produced a spill entry
+    e_depth: torch.Tensor,  # [V, E] int32
+    e_map: torch.Tensor,  # [V, E, P] int32
+    e_cand: torch.Tensor,  # [V, E, W] int32
+    e_pending: torch.Tensor,  # [V, E] int32
+    e_part: torch.Tensor,  # [V, E] int32
+) -> SpillState:
+    """Append the flagged lanes to each worker's spill ring, **in place**.
+    A worker's flagged lanes take consecutive slots from its ``sp_size``
+    (prefix sum); pushes past the capacity are dropped and latch
+    ``sp_overflow``, and ``sp_size`` stops at the capacity.  ``repro``
+    scatters with ``mode="drop"``; here each of the ``min(E, C)`` slots
+    after ``sp_size`` gathers its lane (:func:`invert_slots`)."""
+    v_loc, c_cap = spill.sp_depth.shape
+    e = flags.shape[1]
+    fl = flags.to(torch.int32)
+    offs = torch.cumsum(fl, dim=1).to(torch.int32) - fl
+    fits = flags & (spill.sp_size[:, None] + offs < c_cap)
+    n_out = min(e, c_cap)
+    src, take = invert_slots(torch.where(fits, offs, -1), n_out)
+    vidx = torch.arange(v_loc, device=flags.device)[:, None]
+    # n_out <= c_cap consecutive slots modulo c_cap are distinct; the ones
+    # past the capacity take nothing
+    slots = (spill.sp_size[:, None] + torch.arange(n_out, device=flags.device)) % c_cap
+    for dst, val in ((spill.sp_depth, e_depth), (spill.sp_map, e_map), (spill.sp_cand, e_cand),
+                     (spill.sp_pending, e_pending), (spill.sp_part, e_part)):
+        write_slots(dst, vidx, slots, val[vidx, src], take)
+    new_size = spill.sp_size + fl.sum(dim=1, dtype=torch.int32)
+    return spill._replace(
+        sp_size=new_size.clamp(max=c_cap),
+        sp_overflow=spill.sp_overflow | (new_size > c_cap).any(),
+    )
+
+
+def spill_watermark(spill: SpillState, margin: int) -> torch.Tensor:
+    """True when any worker's ring is within ``margin`` pushes of its
+    capacity: the round loop's cue to return to the host for a drain."""
+    c_cap = spill.sp_depth.shape[1]
+    return (spill.sp_size >= c_cap - margin).any()
 
 
 def used_from_map(map_: torch.Tensor, depth: torch.Tensor, w: int) -> torch.Tensor:

@@ -1,8 +1,7 @@
 """Graph representations for subgraph enumeration (host side, numpy).
 
-A copy of ``repro.core.graph`` (all but the out-of-core partitioning and
-the incremental plane patching of later slices), kept here so that the
-port imports nothing of the JAX package:
+A copy of ``repro.core.graph``, kept here so that the port imports nothing
+of the JAX package:
 
 * :class:`Graph` — a labeled directed graph (undirected graphs store both
   arcs).  Preprocessing (ordering, domains) and the sequential oracle read it.
@@ -14,6 +13,9 @@ port imports nothing of the JAX package:
   per ``(edge_label, direction)`` plane: the layout of the sparse engine
   (``step_backend="csr"``), ``O(nnz + n_planes · n_t)`` words instead of
   the bitmaps' ``O(n_planes · n_t · w)``.
+* :class:`PartitionedPlanes` — contiguous row ranges of those planes, the
+  out-of-core layout (``step_backend="partitioned"``): one range's rows are
+  on the device at a time.
 
 Bitmaps here are ``uint32`` words; the engine carries the same bits as
 ``int32`` tensors (`repro_torch.core.extend.make_plan_arrays`).
@@ -176,6 +178,19 @@ class Graph:
         bit_in = np.uint32(1) << (self.src % WORD_BITS).astype(np.uint32)
         np.bitwise_or.at(bits, (self.edge_labels, 1, self.dst, word_in), bit_in)
         return bits
+
+    def partition(
+        self,
+        n_parts: Optional[int] = None,
+        max_bytes: Optional[int] = None,
+        n_elab: Optional[int] = None,
+    ) -> "PartitionedPlanes":
+        """Degree-aware contiguous CSR partitioning of this graph's canonical
+        adjacency planes (see :func:`partition_csr_planes`).  Exactly one of
+        ``n_parts=`` / ``max_bytes=`` selects the partition count."""
+        return partition_csr_planes(
+            self.csr_planes(n_elab), n_parts=n_parts, max_bytes=max_bytes
+        )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,6 +361,167 @@ class CsrPlaneSet:
         return CsrPlanes(
             n_t=self.n_t, indptr=indptr, indices=flat.astype(np.int32), deg_cap=deg_cap
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class PartitionedPlanes:
+    """A contiguous row partitioning of :class:`CsrPlanes`, the out-of-core
+    target layout behind ``step_backend="partitioned"``.
+
+    Partition ``p`` owns global rows ``[node_start[p], node_start[p+1])`` of
+    every adjacency plane.  Each entry of ``parts`` is a :class:`CsrPlanes`
+    over **local** rows (``n_t`` = partition size, global row ``v`` is local
+    row ``v - node_start[p]``) whose ``indices`` keep **global** column ids.
+    Boundary (cut) arcs are not replicated into neighbouring partitions: an
+    extension that needs a non-resident row is parked in the spill frontier
+    until its partition is swapped in.  Only one partition's planes need be
+    on the device at a time, so peak plane memory is
+    ``max_resident_nbytes`` instead of the whole target's ``nbytes``.
+    """
+
+    n_t: int
+    node_start: np.ndarray  # [n_parts + 1] int64, node_start[0]=0, [-1]=n_t
+    parts: Tuple[CsrPlanes, ...]  # local rows, global columns
+    cut_per_part: np.ndarray  # [n_parts] int64 out-arcs leaving the partition
+
+    @property
+    def n_parts(self) -> int:
+        return len(self.parts)
+
+    @property
+    def n_planes(self) -> int:
+        return self.parts[0].n_planes if self.parts else 0
+
+    @property
+    def cut_edges(self) -> int:
+        """Total boundary arcs (row and column in different partitions),
+        counted once per out-plane entry."""
+        return int(self.cut_per_part.sum())
+
+    @property
+    def deg_cap(self) -> int:
+        return max((p.deg_cap for p in self.parts), default=0)
+
+    @property
+    def max_local(self) -> int:
+        """Largest partition row count (pads the shared plan-array shape)."""
+        return max((p.n_t for p in self.parts), default=0)
+
+    @property
+    def max_nnz(self) -> int:
+        return max((p.nnz for p in self.parts), default=0)
+
+    def part_of(self, nodes: np.ndarray) -> np.ndarray:
+        """Owning partition id per global node id."""
+        return np.searchsorted(self.node_start, np.asarray(nodes), side="right") - 1
+
+    def resident_nbytes(self, pid: int) -> int:
+        """Plane bytes resident while partition ``pid`` is swapped in."""
+        return self.parts[pid].nbytes
+
+    @property
+    def max_resident_nbytes(self) -> int:
+        return max((p.nbytes for p in self.parts), default=0)
+
+
+def _slice_planes(planes: CsrPlanes, lo: int, hi: int) -> CsrPlanes:
+    """Rows ``[lo, hi)`` of every plane as a local-row :class:`CsrPlanes`.
+
+    Each plane's rows are contiguous in the flat ``indices`` array, so the
+    slice is one run per plane, rebased to partition-local offsets.
+    """
+    n_loc = hi - lo
+    ptr = planes.indptr
+    new_ptr = np.zeros((planes.n_planes, n_loc + 1), dtype=np.int64)
+    pieces = []
+    off = 0
+    for p in range(planes.n_planes):
+        s, e = int(ptr[p, lo]), int(ptr[p, hi])
+        pieces.append(planes.indices[s:e])
+        new_ptr[p] = ptr[p, lo : hi + 1].astype(np.int64) - s + off
+        off += e - s
+    indices = (
+        np.concatenate(pieces) if pieces else np.zeros(0, dtype=np.int32)
+    ).astype(np.int32)
+    deg_cap = int(np.diff(new_ptr, axis=1).max()) if n_loc else 0
+    return CsrPlanes(
+        n_t=n_loc, indptr=new_ptr.astype(np.int32), indices=indices, deg_cap=deg_cap
+    )
+
+
+def _partition_points(planes: CsrPlanes, n_parts: int) -> np.ndarray:
+    """Degree-aware contiguous split: node boundaries chosen so the
+    cumulative row weight (nnz across planes + indptr words) is balanced
+    per part."""
+    n_t = planes.n_t
+    n_parts = max(1, min(n_parts, max(n_t, 1)))
+    if n_t == 0:
+        return np.zeros(n_parts + 1, dtype=np.int64)
+    row_nnz = np.diff(planes.indptr.astype(np.int64), axis=1).sum(axis=0)
+    weight = row_nnz + planes.n_planes  # + per-row indptr cost
+    cum = np.cumsum(weight)
+    targets = cum[-1] * (np.arange(1, n_parts, dtype=np.float64) / n_parts)
+    cuts = np.searchsorted(cum, targets, side="left") + 1
+    starts = np.concatenate([[0], cuts, [n_t]]).astype(np.int64)
+    # monotone and in range; equal neighbours give empty (zero-row)
+    # partitions, which are valid
+    return np.maximum.accumulate(np.clip(starts, 0, n_t))
+
+
+def partition_csr_planes(
+    planes: CsrPlanes,
+    n_parts: Optional[int] = None,
+    max_bytes: Optional[int] = None,
+) -> PartitionedPlanes:
+    """Partition :class:`CsrPlanes` into contiguous degree-balanced row
+    ranges (see :class:`PartitionedPlanes`).
+
+    Exactly one of ``n_parts`` / ``max_bytes`` selects the partition count:
+    ``max_bytes`` picks the smallest count whose largest partition's resident
+    plane bytes fit the budget.  Boundary arcs are never replicated (on
+    expander-like graphs the cut is ``O(nnz)``, which would void the memory
+    bound); ``cut_per_part`` counts them for planning reports.
+    """
+    if (n_parts is None) == (max_bytes is None):
+        raise ValueError("pass exactly one of n_parts= / max_bytes=")
+    if n_parts is not None:
+        if n_parts < 1:
+            raise ValueError(f"n_parts must be >= 1, got {n_parts}")
+        candidates = [n_parts]
+    else:
+        if max_bytes <= 0:
+            raise ValueError(f"max_bytes must be > 0, got {max_bytes}")
+        first = max(1, -(-planes.nbytes // max_bytes))  # ceil
+        candidates = range(first, max(planes.n_t, 1) + 1)
+
+    result = None
+    for cand in candidates:
+        starts = _partition_points(planes, cand)
+        parts = tuple(
+            _slice_planes(planes, int(starts[i]), int(starts[i + 1]))
+            for i in range(len(starts) - 1)
+        )
+        result = (starts, parts)
+        if max_bytes is None or max(p.nbytes for p in parts) <= max_bytes:
+            break
+    starts, parts = result
+    if max_bytes is not None and max(p.nbytes for p in parts) > max_bytes:
+        raise ValueError(
+            f"cannot fit any partitioning under max_bytes={max_bytes}: "
+            f"smallest achievable resident set is {max(p.nbytes for p in parts)} B"
+        )
+
+    # cut accounting: out-plane entries whose column leaves the row's range
+    cut = np.zeros(len(parts), dtype=np.int64)
+    for pid, part in enumerate(parts):
+        lo, hi = int(starts[pid]), int(starts[pid + 1])
+        for p in range(0, part.n_planes, 2):  # out planes only (dir == 0)
+            s, e = int(part.indptr[p, 0]), int(part.indptr[p, part.n_t])
+            cols = part.indices[s:e]
+            cut[pid] += int(np.count_nonzero((cols < lo) | (cols >= hi)))
+    return PartitionedPlanes(
+        n_t=planes.n_t, node_start=starts, parts=parts, cut_per_part=cut
+    )
 
 
 def _assemble_csr_planes(

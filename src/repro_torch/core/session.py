@@ -1,7 +1,6 @@
 """Prepared-query session API for subgraph enumeration.
 
-A port of ``repro.core.session`` (all but meshes and the out-of-core
-backend):
+A port of ``repro.core.session`` (all but meshes):
 
 * :class:`SubgraphIndex` — a prepared target: the :class:`PackedGraph`
   bitmaps plus label/degree metadata, built once and reused across
@@ -34,6 +33,14 @@ backend):
       index update: removals by membership test, insertions by engine runs
       seeded from the inserted arcs; ``invalidate_index(fingerprint)``
       drops a retired version's device copies.
+
+``Enumerator(..., memory_budget_bytes=N)`` selects the out-of-core
+partitioned backend: each target's CSR rows are split into the fewest
+contiguous partitions whose padded resident planes fit ``N`` bytes
+(``step_backend="partitioned"`` with ``n_partitions=k`` picks the count
+instead), and a run streams them through the device
+(`repro_torch.core.engine.run_partitioned`).  Such a session runs the
+queries of a pack or a stream one by one, as ``repro``'s does.
 
 An explicitly dense step backend (``"jnp"`` / ``"pallas"``) cannot run a
 CSR-only plan; the session raises ``ValueError`` at prepare and run entry.
@@ -608,7 +615,9 @@ class Enumerator:
     ``step_backend="auto"`` defers the step backend to the target: queries
     against targets beyond ``extend.CSR_AUTO_NT`` (32,768) nodes, and every
     CSR-only query, run the sparse ``csr`` step; smaller dense ones the
-    ``jnp`` step.
+    ``jnp`` step.  ``memory_budget_bytes`` (> 0) selects the out-of-core
+    ``"partitioned"`` backend, its partition count derived per target so
+    that the resident padded planes fit the budget.
     :meth:`cache_stats` counts uploads and reuses.  PyTorch compiles
     nothing here, so ``repro``'s compile counters have no counterpart.
 
@@ -630,8 +639,6 @@ class Enumerator:
     ):
         if mesh is not None:
             raise _not_ported("Enumerator(mesh=...)", "11 (multi-device)")
-        if memory_budget_bytes is not None:
-            raise _not_ported("Enumerator(memory_budget_bytes=...)", "9 (out-of-core)")
         if domain_backend not in ("device", "numpy"):
             raise ValueError(
                 f"domain_backend must be 'device' or 'numpy', got {domain_backend!r}"
@@ -639,6 +646,15 @@ class Enumerator:
         cfg = config or EngineConfig(**config_kwargs)
         if config is not None and config_kwargs:
             cfg = dataclasses.replace(config, **config_kwargs)
+        if memory_budget_bytes is not None:
+            if memory_budget_bytes <= 0:
+                raise ValueError(
+                    f"memory_budget_bytes must be positive, got {memory_budget_bytes}"
+                )
+            # a budget implies the out-of-core backend; the partition count
+            # is derived per target (_partition_count)
+            cfg = dataclasses.replace(cfg, step_backend="partitioned")
+        self.memory_budget_bytes = memory_budget_bytes
         self.config = cfg
         self.variant = variant
         self.domain_backend = domain_backend
@@ -912,11 +928,34 @@ class Enumerator:
         return self._matchset(query, -1, res, match_s, retries=retries)
 
     def _run_single(self, cfg: EngineConfig, query: Query) -> EngineResult:
-        """One engine invocation, a pack of one (no retry)."""
+        """One engine invocation, a pack of one (no retry), or one
+        out-of-core run."""
         extend.validate_backend_for_plan(cfg, query.plan)
+        if extend.resolve_step_backend_for_plan(cfg, query.plan) == "partitioned":
+            return self._run_partitioned(cfg, query)
         arrays = self._plan_arrays([query], cfg)
         state = init_state(query.plan, cfg, self.device)
         return eng.result_from_state(eng._engine_loop(cfg, arrays, state), cfg)
+
+    def _partition_count(self, cfg: EngineConfig, plan: SearchPlan) -> int:
+        """Partition count for a plan under this session: an explicit
+        ``EngineConfig.n_partitions`` wins; otherwise the session's
+        ``memory_budget_bytes`` derives the smallest count whose padded
+        resident planes fit; otherwise 1 (the whole target resident)."""
+        if cfg.n_partitions > 0:
+            return cfg.n_partitions
+        if self.memory_budget_bytes is not None:
+            return extend.plan_partitions_budget(plan, self.memory_budget_bytes).n_parts
+        return 1
+
+    def _run_partitioned(self, cfg: EngineConfig, query: Query) -> EngineResult:
+        """One out-of-core run (:func:`~repro_torch.core.engine.run_partitioned`)
+        at this session's partition count.  It uploads one partition's
+        planes per visit, never the whole target's, so it does not use the
+        session's adjacency cache."""
+        runc = dataclasses.replace(cfg, step_backend="partitioned",
+                                   n_partitions=self._partition_count(cfg, query.plan))
+        return eng.run_partitioned(query.plan, runc, device=self.device)
 
     def _retry_overflowed(self, cfg: EngineConfig, query: Query) -> EngineResult:
         """``cfg``'s run of ``query`` overflowed (undercounted): warn and
@@ -1122,12 +1161,19 @@ class Enumerator:
         different contents never share a pack, since a pack reads one
         adjacency.  Under the csr backend (as ``cfg``, default the
         session's, resolves it) it also carries the plan's padded CSR shape
-        (:func:`~repro_torch.core.extend.csr_shape_bucket`), as in ``repro``.
+        (:func:`~repro_torch.core.extend.csr_shape_bucket`), and under the
+        partitioned backend its partition identity
+        (:func:`~repro_torch.core.extend.partitioned_shape_bucket`), as in
+        ``repro``.
         """
         cfg = cfg or self.config
         key = query.bucket + (query.index_fingerprint,)
-        if extend.resolve_step_backend_for_plan(cfg, query.plan) == "csr":
+        resolved = extend.resolve_step_backend_for_plan(cfg, query.plan)
+        if resolved == "csr":
             key = key + extend.csr_shape_bucket(query.plan)
+        elif resolved == "partitioned":
+            key = key + extend.partitioned_shape_bucket(
+                query.plan, self._partition_count(cfg, query.plan))
         return key
 
     def run_pack(
@@ -1144,6 +1190,7 @@ class Enumerator:
         pack; mixed keys raise.  Unsatisfiable queries get empty results
         without touching the engine.  ``cfg`` overrides the session config;
         overflowed lanes go through the doubled-``stack_cap`` single retry.
+        Under the partitioned backend the queries run one by one.
         """
         cfg = cfg or self.config
         qs = self._coerce_all(queries)
@@ -1162,9 +1209,15 @@ class Enumerator:
                     f"run_pack requires one coalesce_key per pack, got {len(keys)}: "
                     f"{sorted(keys)}"
                 )
-            for j in range(0, len(live), pack_size):
-                for ms in self._run_pack(live[j:j + pack_size], qs, cfg, pack_size):
-                    out[ms.query_index] = ms
+            if cfg.step_backend == "partitioned":
+                # the host partition-scheduling loop runs one query at a time
+                for i in live:
+                    out[i] = self.run(qs[i], collect_matches=cfg.collect_matches)
+                    out[i].query_index = i
+            else:
+                for j in range(0, len(live), pack_size):
+                    for ms in self._run_pack(live[j:j + pack_size], qs, cfg, pack_size):
+                        out[ms.query_index] = ms
         return out  # type: ignore[return-value]
 
     def stream(
@@ -1177,10 +1230,20 @@ class Enumerator:
         Queries are grouped by :meth:`coalesce_key`, LPT-balanced into packs
         of ``pack_size`` (padded with inert lanes, as in ``repro``), and run
         pack by pack; each finished pack yields its results at once.
-        ``MatchSet.query_index`` carries the position in the input.
+        ``MatchSet.query_index`` carries the position in the input.  Under
+        the partitioned backend each query runs singly, in input order.
         """
         qs: List[Query] = self._coerce_all(queries)
         cfg = self.config
+        if cfg.step_backend == "partitioned":
+            for i, q in enumerate(qs):
+                if not q.plan.satisfiable:
+                    yield self._matchset(q, i, _empty_engine_result(), 0.0)
+                else:
+                    ms = self.run(q)
+                    ms.query_index = i
+                    yield ms
+            return
         groups: Dict[tuple, List[int]] = {}
         for i, q in enumerate(qs):
             if not q.plan.satisfiable:

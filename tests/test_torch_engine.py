@@ -169,18 +169,28 @@ def test_cpu_run_launches_no_kernel(rng):
 
 
 # ---------------------------------------------------------------------------
-# what later slices bring is refused, not accepted silently
+# configuration values: accepted as repro accepts them; what later slices
+# bring is refused, not accepted silently
 # ---------------------------------------------------------------------------
 
-# explicit ids keep the ids these cases had before the sparse path's
-# "csr" / "auto" cases moved to test_sparse_config_values_accepted and edge
-# seeding's "edge" / "auto" to test_root_seeding_values_accepted
-@pytest.mark.parametrize("kw,item", [
-    pytest.param(dict(step_backend="partitioned"), "item 9", id="kw2-item 9"),
-])
-def test_later_config_values_refused(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        EngineConfig(**kw)
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_partitioned_config_value_accepted(k):
+    """The out-of-core backend and its settings are accepted as repro's
+    (with the same resolved spill capacity); an unknown backend raises
+    repro's ValueError."""
+    kw = dict(step_backend="partitioned", n_partitions=k, expand_width=4)
+    cfg, jcfg = EngineConfig(**kw), JaxConfig(**kw)
+    assert (cfg.step_backend, cfg.n_partitions, cfg.spill_cap) == (
+        jcfg.step_backend, jcfg.n_partitions, jcfg.spill_cap)
+    for p_pad in (16, 32):
+        assert cfg.resolved_spill_cap(p_pad) == jcfg.resolved_spill_cap(p_pad)
+    assert extend.resolve_step_backend(cfg, 10) == jax_extend.resolve_step_backend(jcfg, 10)
+    msgs = []
+    for make in (EngineConfig, JaxConfig):
+        with pytest.raises(ValueError, match="step_backend") as e:
+            make(step_backend="partitioned-" + str(k))
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
 
 
 @pytest.mark.parametrize("seeding", ["vertex", "edge", "auto"])
