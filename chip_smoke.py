@@ -143,6 +143,37 @@ Phases, each printed as one JSON line:
    short once the step is taken).  It prints the partition count and bytes, each run's
    scheduling statistics, seconds (cold and warm) and the host seconds of
    intake and ring drains, and the card's name and power limit.
+9. service — ``repro_torch.serve.EnumerationService`` on the card, reusing
+   the targets and patterns of phases 3, 4, 5 and 8.  S1: phase 3's dense
+   index under ``step_backend="auto"``, ``use_pallas``, ``ri-ds-si-acfc``,
+   packs of 8 lanes and a 2 ms window, serving 16 client threads of 4
+   tenants.  Phase 4's 24 patterns are prepared up front by
+   ``prepare_batch`` (K5 + K3); each client submits three of them
+   (round-robin, so each twice) and one of phase 5's target A patterns that
+   it prepares itself on target A's sparse index (K8 + K3), and one client
+   also submits the smallest pattern raw, prepared by ``submit`` with
+   numpy.  Once every client has submitted its first dense query and its
+   CSR-only one, ``update_index`` swaps in a 1 % edit of the dense target
+   (drawn as phase 7 draws its edits) and the remaining dense queries are
+   prepared on the new version.  Dense packs run through K2, CSR-only ones
+   through K7; even clients collect 32 mappings per worker, odd ones
+   count.  S2: the same dense traffic through K1 (``"pallas"``), once
+   without and once with a ``warmup_profile`` of the 24 prepared queries.
+   S3: ``memory_budget_bytes`` of phase 8's budget on phase 8's target,
+   ``csr_walk="flat"`` (K6), its pattern submitted twice.  Gates: every
+   status ok; every served ``MatchSet`` equals a standalone
+   ``Enumerator.run`` of the same query on the card on every counter (per
+   worker too) and ``retries``, and its streamed chunks, concatenated,
+   equal that run's mappings at the same collect budget; ``completed``
+   equals the submissions; dense and CSR-only queries never share a
+   coalesce key, and there are at least as many dispatches as keys; S1
+   launches K2, K7, K8, K5 and K3, S2 K1, S3 K6; S2's warmed dispatches
+   make no upload after ``start()``; S3 gives phase 8's monolithic
+   matches and states.  It prints QPS, latency percentiles, queue wait,
+   batch occupancy, dispatches, uploads and the first result's latency
+   with and without the warm-up, beside the card's ``nvidia-smi`` line,
+   then runs ``repro_torch.launch.serve --smoke --use-pallas`` (which
+   checks its own results).
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -242,6 +273,28 @@ OOC_N_PARTS = 2
 OOC_RUNS = (("budget bucketed", "bucketed", "budget", "csr_extend_bucketed"),
             ("budget flat", "flat", "budget", "csr_extend"),
             (f"{OOC_N_PARTS} parts bucketed", "bucketed", "count", "csr_extend_bucketed"))
+# phase 9, the service: phase 3's target (its dense index) serves SVC_CLIENTS
+# client threads of SVC_TENANTS tenants in packs of SVC_SERVICE["max_lanes"]
+# lanes.  Each client submits SVC_DENSE_PER_CLIENT of phase 4's 24 patterns
+# (round-robin, prepared up front by prepare_batch on the card) and one of
+# phase 5's target A patterns (prepared by the client on target A's sparse
+# index), one dense query before and the others after a 1 % edit of the
+# dense target (SVC_EDIT_SEED, drawn as phase 7 draws its edits); even
+# clients collect SVC_COLLECT mappings per worker, odd ones count.  Then the
+# same dense traffic through K1 without and with a warm-up profile, and phase
+# 8's out-of-core query twice.  SVC_KERNELS gates each service's launches.
+SVC_CLIENTS, SVC_TENANTS = 16, 4
+SVC_DENSE_PER_CLIENT = 3
+SVC_VARIANT = "ri-ds-si-acfc"
+SVC_COLLECT = 32
+SVC_SERVICE = dict(max_lanes=8, batch_window_s=0.002, chunk_size=256)
+SVC_EDIT_SEED = 9
+SVC_TIMEOUT = 180.0
+SVC_KERNELS = {"S1": ("candidate_mask", "csr_extend_bucketed", "csr_arc_sweep",
+                      "adjacency_any", "popcount_rows"),
+               "S2": ("extend_step",), "S3": ("csr_extend",)}
+# targets and patterns that earlier phases built and phase 9 reuses
+SHARED = {}
 # K9 edge cases (bh, S, S_kv, d, inputs): one query; ragged lengths; S > S_kv
 # and S < S_kv; d of 16, 64, 80, 128 and 256; every score equal
 K9_EDGES = [(4, 1, 1, 64, "random"), (3, 9, 9, 16, "random"), (2, 200, 200, 80, "random"),
@@ -846,6 +899,7 @@ def run_main_path(device):
             raise AssertionError(f"{ms.name}: engine {(ms.matches, ms.states)} != "
                                  f"ref_enumerate {(ref.matches, ref.states)}")
     emit(dict(phase="oracle", agree=True, queries=oracle))
+    SHARED["main"] = dict(target=target, index=index)
     if launches["pallas"]["extend_step"] == 0:
         raise AssertionError("the pallas run never launched extend_step")
     if launches["jnp+use_pallas"]["candidate_mask"] == 0:
@@ -958,6 +1012,7 @@ def run_batch_path(device, collection=None):
     insts = [i for i in insts if i.target is target]
     patterns = [i.pattern for i in insts]
     names = [i.name for i in insts]
+    SHARED["batch"] = dict(patterns=patterns, names=names)
     index = SubgraphIndex.build(target)
     buckets, fixpoints = {}, set()  # pattern shapes; prepare_batch's groups
     for p in patterns:
@@ -1650,6 +1705,8 @@ def run_sparse_path(device):
     target = insts[0].target
     insts = [i for i in insts if i.target is target]
     index = SubgraphIndex.build(target, sparse=True)
+    SHARED["sparse"] = dict(index=index, patterns=[i.pattern for i in insts],
+                            names=[i.name for i in insts])
     planes = index.csr_planes()
     deg = np.diff(planes.indptr, axis=1)
     emit(dict(phase="sparse_setup", target="A", n_t=target.n, arcs=target.m,
@@ -2866,6 +2923,8 @@ def run_outofcore_path(device, smi: str):
     if (ref.matches, ref.states) != (want.matches, want.states):
         raise AssertionError(f"monolithic csr {(want.matches, want.states)} != ref_enumerate "
                              f"{(ref.matches, ref.states)}")
+    SHARED["ooc"] = dict(index=index, pattern=pattern, budget=budget, matches=want.matches,
+                         states=want.states)
     emit(dict(phase="outofcore_path", run="monolithic csr bucketed", launches=counts,
               matches=want.matches, states=want.states, steps=want.steps, cold_s=mono_cold_s,
               warm_s=mono_warm_s))
@@ -2960,6 +3019,304 @@ def run_outofcore_path(device, smi: str):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 9: the service (repro_torch.serve)
+# ---------------------------------------------------------------------------
+
+def svc_drive(svc, clients, between=None):
+    """Drive ``svc`` with one thread per entry of ``clients``, a ``(before,
+    after)`` pair: ``before`` is a list of submissions, ``after`` a function
+    returning one.  A submission is a dict with ``query`` (a prepared Query,
+    a raw pattern that ``submit`` prepares, or a function that prepares one
+    on the client thread), ``name``, ``collect``, ``tenant`` and ``index``
+    (the index version a raw pattern is prepared against).  Each client
+    submits ``before``, waits for every other client (the last to arrive
+    runs ``between``), submits ``after``, then reads each stream's terminal
+    status and chunks.  Returns the submissions, each with its query,
+    ``status`` and ``chunks``, and the seconds from the start to the last
+    client's end."""
+    import threading
+
+    barrier = threading.Barrier(len(clients), action=between)
+    records = [[] for _ in clients]
+    errors = []
+
+    def submit(sub):
+        q = sub["query"]
+        if callable(q):
+            q = q()  # prepared on this client thread
+        rec = dict(sub, query=q)
+        rec["handle"] = svc.submit(q, tenant=sub["tenant"], name=sub["name"],
+                                   collect=sub["collect"], timeout=SVC_TIMEOUT)
+        return rec
+
+    def client(c):
+        try:
+            before, after = clients[c]
+            records[c] += [submit(sub) for sub in before]
+            barrier.wait(SVC_TIMEOUT)
+            records[c] += [submit(sub) for sub in after()]
+            for rec in records[c]:
+                rec["status"] = rec["handle"].status(timeout=SVC_TIMEOUT)
+                rec["chunks"] = rec["handle"].chunks(timeout=SVC_TIMEOUT)
+        except BaseException as e:  # raised after the join
+            errors.append(e)
+            barrier.abort()
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(len(clients))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(SVC_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a service client did not finish")
+    return [rec for recs in records for rec in recs], wall
+
+
+def svc_check(label, records, ref, variant) -> None:
+    """Gate each served query against a standalone ``ref.run`` of it at the
+    same collect budget: every status ok, every counter (per worker too) and
+    ``retries`` equal, and the streamed chunks, concatenated, equal to the
+    standalone run's mappings (no chunk in counting mode)."""
+    from repro_torch.core import Query
+
+    standalone = {}
+    for rec in records:
+        st = rec["status"]
+        if not st.ok:
+            raise AssertionError(f"{label} {rec['name']}: served with an error: {st.error}")
+        q = rec["query"]
+        if not isinstance(q, Query):  # a raw pattern, prepared by submit()
+            q = rec["query"] = Query(pattern=q, plan=st.matchset.plan, variant=variant,
+                                     name=rec["name"], prepare_s=0.0, index=rec["index"])
+        key = (id(q.plan), rec["collect"])
+        if key not in standalone:
+            standalone[key] = ref.run(q, collect_matches=rec["collect"])
+        one = standalone[key]
+        if _counters(st.matchset) != _counters(one) or st.retries != st.matchset.retries \
+                or st.matchset.retries != one.retries:
+            raise AssertionError(f"{label} {rec['name']}: served {_counters(st.matchset)} "
+                                 f"(retries {st.retries}) != standalone {_counters(one)}")
+        got = [m for chunk in rec["chunks"] for m in chunk.mappings]
+        if got != (one.mappings() if rec["collect"] else []):
+            raise AssertionError(f"{label} {rec['name']}: streamed chunks != the standalone "
+                                 f"run's mappings at collect {rec['collect']}")
+
+
+def svc_summary(svc, records, wall) -> dict:
+    """The printed (not gated) numbers of one service run."""
+    st = svc.stats()
+    lat = [rec["status"].latency_s for rec in records]
+    return dict(submitted=st["submitted"], completed=st["completed"], wall_s=wall,
+                qps=len(records) / wall, window_qps=st["qps"],
+                latency_p50_s=st["latency_p50_s"], latency_p99_s=st["latency_p99_s"],
+                latency_max_s=st["latency_max_s"], first_latency_s=min(lat),
+                queue_wait_p50_s=st["queue_wait_p50_s"], queue_wait_p99_s=st["queue_wait_p99_s"],
+                batch_occupancy=st["batch_occupancy"], dispatches=st["dispatches"],
+                chunks=st["chunks"], retries=st["retries"], cache_uploads=st["cache_uploads"],
+                cache_hits=st["cache_hits"], cache_invalidated=st["cache_invalidated"],
+                warmup_uploads=st["warmup_uploads"])
+
+
+def _svc_gate_launches(label, counts) -> None:
+    missing = [k for k in SVC_KERNELS.get(label, ()) if not counts[k]]
+    if missing:
+        raise AssertionError(f"service {label} never launched {missing}: {counts}")
+
+
+def run_service_path(device, smi: str) -> dict:
+    """Phase 9: three services on the card.  S1 serves mixed dense and
+    CSR-only load on phase 3's target through K2 and K7 (phase 4's patterns
+    prepared up front through K5 and K3, phase 5's by the clients through
+    K8 and K3) across a live 1 % edit of the dense target; S2 the dense
+    traffic alone through K1, without and with a warm-up profile; S3 phase
+    8's query under its memory budget through K6.  Returns the launch
+    counts of the three."""
+    import io
+
+    from repro_torch.core import EngineConfig, Enumerator
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import EnumerationService, ServiceConfig
+
+    t_phase = time.perf_counter()
+    main, batch, sparse, ooc = (SHARED[k] for k in ("main", "batch", "sparse", "ooc"))
+    index0, pats, names = main["index"], batch["patterns"], batch["names"]
+    n_dense = len(pats)
+    launches = {}
+    total = {}
+
+    def dense_at(c, j):
+        return (c * SVC_DENSE_PER_CLIENT + j) % n_dense
+
+    # ---- S1: mixed dense and CSR-only load, a live index update ----------
+    cfg1 = EngineConfig(**ENGINE_KW, step_backend="auto", use_pallas=True)
+    small = min(range(n_dense), key=lambda i: (pats[i].n, pats[i].m))
+    ((adds, rems),) = dyn_build_stream(main["target"], pats[small], 1, SVC_EDIT_SEED,
+                                       DYN_EDIT_FRACTION)
+    svc = EnumerationService(index0, config=cfg1, variant=SVC_VARIANT,
+                             service=ServiceConfig(**SVC_SERVICE), device=device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = svc.enumerator.prepare_batch(pats, names=[f"{n}/v0" for n in names])
+    pre_s = time.perf_counter() - t0
+    post = {}
+
+    def swap():  # run by the last client to reach the barrier
+        t = time.perf_counter()
+        post["delta"] = svc.update_index(add_edges=adds, remove_edges=rems)
+        post["index"] = svc.enumerator.index
+        t1 = time.perf_counter()
+        post["queries"] = svc.enumerator.prepare_batch(
+            pats, names=[f"{n}/v1" for n in names], index=post["index"])
+        post["update_s"], post["prepare_batch_s"] = t1 - t, time.perf_counter() - t1
+
+    def s1_client(c):
+        collect, tenant = (SVC_COLLECT if c % 2 == 0 else 0), f"t{c % SVC_TENANTS}"
+
+        def sub(query, name, kind, index=None):
+            return dict(query=query, name=name, kind=kind, index=index, collect=collect,
+                        tenant=tenant)
+
+        i0 = dense_at(c, 0)
+        p = sparse["patterns"][c % len(sparse["patterns"])]
+        before = [sub(pre[i0], f"c{c}/{pre[i0].name}", "dense"),
+                  sub(lambda p=p: svc.enumerator.prepare(p, variant=SVC_VARIANT,
+                                                         index=sparse["index"],
+                                                         name=f"c{c}/csr"),
+                      f"c{c}/csr", "csr")]
+        if c == 1:  # one raw pattern: submit() prepares it on this thread
+            before.append(sub(pats[small], f"c{c}/{names[small]}/raw", "raw", index0))
+
+        def after():
+            return [sub(post["queries"][i], f"c{c}/{post['queries'][i].name}", "dense")
+                    for i in (dense_at(c, j) for j in range(1, SVC_DENSE_PER_CLIENT))]
+
+        return before, after
+
+    try:
+        svc.start()
+        records, wall = svc_drive(svc, [s1_client(c) for c in range(SVC_CLIENTS)], swap)
+    finally:
+        svc.stop(drain=True)
+    launches["S1"] = ops.launch_counts()
+    _add(total, launches["S1"])
+    _svc_gate_launches("S1", launches["S1"])
+    s1 = svc_summary(svc, records, wall)
+    if s1["completed"] != len(records) or s1["submitted"] != len(records):
+        raise AssertionError(f"S1: {s1['completed']} completed of {len(records)} submitted")
+    if post["delta"].is_empty or post["index"] is index0:
+        raise AssertionError("S1: the update did not swap the index")
+    svc_check("S1", records, Enumerator(config=cfg1, variant=SVC_VARIANT, device=device),
+              SVC_VARIANT)
+    keys = {}
+    for rec in records:
+        key = svc.enumerator.coalesce_key(rec["query"], svc._cfg_for(rec["collect"]))
+        keys.setdefault(key + (rec["collect"],), set()).add(rec["kind"])
+    if any(len(kinds - {"raw"}) > 1 for kinds in keys.values()) or len(keys) < 2:
+        raise AssertionError(f"S1: dense and CSR-only queries shared a coalesce key: {keys}")
+    if s1["dispatches"] < len(keys):
+        raise AssertionError(f"S1: {s1['dispatches']} dispatches for {len(keys)} keys")
+    versions = {rec["query"].index_fingerprint for rec in records if rec["kind"] != "csr"}
+    emit(dict(phase="service", service="S1", launches=launches["S1"], nvidia_smi=smi,
+              queries=len(records), dense=sum(r["kind"] == "dense" for r in records),
+              csr=sum(r["kind"] == "csr" for r in records),
+              raw=sum(r["kind"] == "raw" for r in records), coalesce_keys=len(keys),
+              dense_versions=len(versions), prepare_batch_s=pre_s,
+              prepare_batch_s_per_pattern=pre_s / n_dense,
+              update=dict(added=len(post["delta"].added), removed=len(post["delta"].removed),
+                          update_s=post["update_s"], prepare_batch_s=post["prepare_batch_s"]),
+              csr_prepare_s=[r["query"].prepare_s for r in records if r["kind"] == "csr"],
+              cache=svc.enumerator.cache_stats(), **s1))
+
+    # ---- S2: the dense traffic alone through K1, cold and warmed ---------
+    cfg2 = EngineConfig(**ENGINE_KW, step_backend="pallas")
+    ref2 = Enumerator(config=cfg2, variant=SVC_VARIANT, device=device)
+    s2, launches["S2"] = {}, {}
+    for label, profile in (("cold", ()), ("warm", tuple(pre))):
+        svc = EnumerationService(index0, config=cfg2, variant=SVC_VARIANT, device=device,
+                                 service=ServiceConfig(**SVC_SERVICE, warmup_profile=profile))
+
+        def s2_client(c):
+            collect = SVC_COLLECT if c % 2 == 0 else 0
+            return ([dict(query=pre[i], name=f"c{c}/{pre[i].name}", kind="dense", index=None,
+                          collect=collect, tenant=f"t{c % SVC_TENANTS}")
+                     for i in (dense_at(c, j) for j in range(SVC_DENSE_PER_CLIENT))],
+                    lambda: [])
+
+        ops.reset_launch_counts()
+        try:
+            t0 = time.perf_counter()
+            svc.start()
+            start_s = time.perf_counter() - t0
+            uploads_started = svc.enumerator.cache_stats()["uploads"]
+            records, wall = svc_drive(svc, [s2_client(c) for c in range(SVC_CLIENTS)])
+        finally:
+            svc.stop(drain=True)
+        counts = ops.launch_counts()
+        _add(launches["S2"], counts)
+        uploads_stopped = svc.enumerator.cache_stats()["uploads"]
+        s2[label] = dict(svc_summary(svc, records, wall), start_s=start_s,
+                         uploads_after_start=uploads_started,
+                         uploads_at_stop=uploads_stopped, launches=counts)
+        if s2[label]["completed"] != len(records):
+            raise AssertionError(f"S2 {label}: {s2[label]['completed']} of {len(records)}")
+        if profile and uploads_stopped != uploads_started:
+            raise AssertionError(f"S2 warm: the dispatches uploaded {uploads_stopped - uploads_started}"
+                                 " times after the warm-up")
+        svc_check(f"S2 {label}", records, ref2, SVC_VARIANT)
+    _add(total, launches["S2"])
+    _svc_gate_launches("S2", launches["S2"])
+    emit(dict(phase="service", service="S2", nvidia_smi=smi, launches=launches["S2"], **s2))
+
+    # ---- S3: out-of-core, phase 8's query under its budget through K6 ----
+    cfg3 = EngineConfig(**OOC_KW, use_pallas=True, csr_walk="flat")
+    svc = EnumerationService(ooc["index"], config=cfg3, device=device,
+                             service=ServiceConfig(memory_budget_bytes=ooc["budget"]))
+
+    def s3_client(c):
+        return ([dict(query=ooc["pattern"], name=f"outofcore/{c}", kind="raw",
+                      index=ooc["index"], collect=SVC_COLLECT if c == 0 else 0, tenant="t0")],
+                lambda: [])
+
+    ops.reset_launch_counts()
+    try:
+        svc.start()
+        records, wall = svc_drive(svc, [s3_client(c) for c in range(2)])
+    finally:
+        svc.stop(drain=True)
+    launches["S3"] = ops.launch_counts()
+    _add(total, launches["S3"])
+    _svc_gate_launches("S3", launches["S3"])
+    svc_check("S3", records, Enumerator(config=cfg3, memory_budget_bytes=ooc["budget"],
+                                        device=device), svc.enumerator.variant)
+    for rec in records:
+        ms = rec["status"].matchset
+        if (ms.matches, ms.states) != (ooc["matches"], ooc["states"]):
+            raise AssertionError(f"S3 {rec['name']}: {(ms.matches, ms.states)} != phase 8's "
+                                 f"monolithic {(ooc['matches'], ooc['states'])}")
+    emit(dict(phase="service", service="S3", nvidia_smi=smi, launches=launches["S3"],
+              budget_bytes=ooc["budget"], matches=ooc["matches"], states=ooc["states"],
+              **svc_summary(svc, records, wall)))
+
+    # ---- the port's service CLI, its own checks inside -------------------
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_cli.main(["--smoke", "--use-pallas"])
+    if rc != 0:
+        raise AssertionError(f"repro_torch.launch.serve --smoke exited {rc}")
+    emit(dict(phase="service_cli", argv="--smoke --use-pallas",
+              seconds=time.perf_counter() - t0, output=out.getvalue().splitlines()[-6:],
+              service_path_s=time.perf_counter() - t_phase, nvidia_smi=smi))
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3046,26 +3403,31 @@ def main() -> int:
     for name, by_walk in ooc_timing.items():
         timing[name].update({f"partitioned_step_{walk}": t for walk, t in by_walk.items()})
 
+    svc = run_service_path(device, smi)
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
                             replaces="src/repro/kernels/extend_step.py:125",
                             launches=launches["pallas"]["extend_step"]
                             + launches["edge pallas"]["extend_step"]
-                            + dyn["pallas"]["extend_step"]),
+                            + dyn["pallas"]["extend_step"] + svc["extend_step"]),
         "candidate_mask": dict(source="src/repro_torch/csrc/candidate_mask.cu",
                                header="src/repro_torch/csrc/dense_step.cuh",
                                replaces="src/repro/kernels/candidate_mask.py:62",
                                launches=launches["jnp+use_pallas"]["candidate_mask"]
                                + launches["edge jnp+use_pallas"]["candidate_mask"]
-                               + dyn["jnp+use_pallas"]["candidate_mask"]),
+                               + dyn["jnp+use_pallas"]["candidate_mask"]
+                               + svc["candidate_mask"]),
         "popcount_rows": dict(source="src/repro_torch/csrc/popcount_rows.cu",
                               replaces="src/repro/kernels/popcount_reduce.py:31",
-                              launches=batch_launches["prepare_batch"]["popcount_rows"]),
+                              launches=batch_launches["prepare_batch"]["popcount_rows"]
+                              + svc["popcount_rows"]),
         "adjacency_any": dict(source="src/repro_torch/csrc/adjacency_any.cu",
                               header="src/repro_torch/csrc/arc_any.cuh",
                               replaces="src/repro/kernels/domain_ac.py:58",
-                              launches=batch_launches["prepare_batch"]["adjacency_any"]),
+                              launches=batch_launches["prepare_batch"]["adjacency_any"]
+                              + svc["adjacency_any"]),
         "arc_any_sweep": dict(source="src/repro_torch/csrc/arc_any_sweep.cu",
                               header="src/repro_torch/csrc/arc_any.cuh",
                               replaces="src/repro/kernels/domain_ac.py:92",
@@ -3074,18 +3436,19 @@ def main() -> int:
                            header="src/repro_torch/csrc/csr_extend.cuh",
                            replaces="src/repro/kernels/csr_extend.py:129",
                            launches=phase5["csr_extend"] + dyn["csr flat"]["csr_extend"]
-                           + ooc["csr_extend"]),
+                           + ooc["csr_extend"] + svc["csr_extend"]),
         "csr_extend_bucketed": dict(source="src/repro_torch/csrc/csr_extend_bucketed.cu",
                                     header="src/repro_torch/csrc/csr_extend.cuh",
                                     replaces="src/repro/kernels/csr_extend.py:319",
                                     launches=phase5["csr_extend_bucketed"]
                                     + dyn["csr bucketed"]["csr_extend_bucketed"]
                                     + dyn["edge csr bucketed"]["csr_extend_bucketed"]
-                                    + ooc["csr_extend_bucketed"]),
+                                    + ooc["csr_extend_bucketed"]
+                                    + svc["csr_extend_bucketed"]),
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
                               header="src/repro_torch/csrc/csr_arc_sweep.cuh",
                               replaces="src/repro/kernels/domain_ac.py:165",
-                              launches=phase5["csr_arc_sweep"]),
+                              launches=phase5["csr_arc_sweep"] + svc["csr_arc_sweep"]),
         "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                                 replaces="src/repro/kernels/flash_attention.py:67",
                                 launches=lm_launches["prefill"]["flash_attention"]

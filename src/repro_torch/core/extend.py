@@ -416,6 +416,21 @@ def resolve_step_backend_for_plan(cfg: "EngineConfig", plan: SearchPlan) -> str:
     return resolve_step_backend(cfg, plan.n_t)
 
 
+def step_kernels(cfg: "EngineConfig", plan: SearchPlan) -> Tuple[str, ...]:
+    """The kernels whose libraries a run of ``plan`` under ``cfg`` launches
+    in its steps: K1 under ``"pallas"``, K2 under ``"jnp"`` with
+    ``use_pallas``, K7 or K6 (by ``csr_walk``) under ``"csr"`` and
+    ``"partitioned"`` with ``use_pallas``; none on the plain paths."""
+    resolved = resolve_step_backend_for_plan(cfg, plan)
+    if resolved == "pallas":
+        return ("extend_step",)
+    if not cfg.use_pallas:
+        return ()
+    if resolved == "jnp":
+        return ("candidate_mask",)
+    return ("csr_extend_bucketed",) if cfg.csr_walk == "bucketed" else ("csr_extend",)
+
+
 def validate_backend_for_plan(cfg: "EngineConfig", plan: SearchPlan) -> None:
     """Fail fast when an explicitly dense step backend is asked to run a
     CSR-only plan (the session calls this at prepare and run entry)."""

@@ -44,8 +44,18 @@ queries of a pack or a stream one by one, as ``repro``'s does.
 
 An explicitly dense step backend (``"jnp"`` / ``"pallas"``) cannot run a
 CSR-only plan; the session raises ``ValueError`` at prepare and run entry.
-PyTorch compiles nothing here, so ``repro``'s compile cache, its counters
-and ``warm`` have no counterpart.
+
+PyTorch compiles nothing here, so ``repro``'s compile cache has no
+counterpart.  A session's one-off cost is instead the **upload** of each
+index version's adjacency per layout, and wherever ``repro`` counts
+``compiles`` the port counts ``uploads``: ``cache_stats()["uploads"]``,
+``warm()["uploads"]`` (fresh uploads spent warming), and the service's
+``cache_uploads`` / ``warmup_uploads``, whose hit rate is hits over
+uploads plus hits.  :meth:`Enumerator.warm` moves that upload, the loading
+of the kernel libraries a query's step launches and the first use of the
+engine's ops ahead of the first real run.  A lock guards the upload
+cache, so one thread may run packs while others prepare queries or retire
+index versions.
 
 Typical use::
 
@@ -61,6 +71,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import threading
 import time
 import warnings
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
@@ -74,7 +85,13 @@ from repro_torch.core import engine as eng
 from repro_torch.core import extend
 from repro_torch.core.delta import DeltaMatchSet, GraphDelta
 from repro_torch.core.engine import EngineConfig, EngineResult
-from repro_torch.core.frontier import EngineState, init_delta_state, init_state, stack_states
+from repro_torch.core.frontier import (
+    EngineState,
+    init_delta_state,
+    init_spill_state,
+    init_state,
+    stack_states,
+)
 from repro_torch.core.graph import (
     WORD_BITS,
     CsrPlanes,
@@ -87,6 +104,7 @@ from repro_torch.core.graph import (
 )
 from repro_torch.core.plan import SearchPlan, build_csr_plan, build_plan, variant_flags
 from repro_torch.core.scheduler import balance_assignment
+from repro_torch.kernels import ops as kops
 
 # Padded pattern-position buckets: every plan's ``p_pad`` snaps up to one of
 # these (beyond the last, to multiples of it), as in ``repro``, so plans of
@@ -609,8 +627,10 @@ class Enumerator:
     ``device=None`` means the CUDA card; without one the constructor raises
     and asks for ``device="cpu"``.  The session uploads each index's
     adjacency once per layout (dense bitmaps, or CSR planes under the csr
-    backend) and keeps the two most recent uploads of each; the domain
-    fixpoint of :meth:`prepare_batch` reads the same upload.
+    backend) and keeps the ``max_cache_entries`` most recent uploads of
+    each (0, the default, keeps two: the current index version and one
+    more, for an update handoff); the domain fixpoint of
+    :meth:`prepare_batch` reads the same upload.
 
     ``step_backend="auto"`` defers the step backend to the target: queries
     against targets beyond ``extend.CSR_AUTO_NT`` (32,768) nodes, and every
@@ -618,8 +638,9 @@ class Enumerator:
     ``jnp`` step.  ``memory_budget_bytes`` (> 0) selects the out-of-core
     ``"partitioned"`` backend, its partition count derived per target so
     that the resident padded planes fit the budget.
-    :meth:`cache_stats` counts uploads and reuses.  PyTorch compiles
-    nothing here, so ``repro``'s compile counters have no counterpart.
+    :meth:`cache_stats` counts uploads, reuses and evictions, and
+    :meth:`warm` spends the uploads (and the kernel loads) of a set of
+    queries up front; these stand for ``repro``'s compile counters.
 
     ``domain_backend`` picks where :meth:`prepare_batch` (and so the
     batched methods, for raw patterns) computes domains: ``"device"`` (the
@@ -633,6 +654,7 @@ class Enumerator:
         variant: str = "ri-ds-si-fc",
         mesh=None,
         domain_backend: str = "device",
+        max_cache_entries: int = 0,
         memory_budget_bytes: Optional[int] = None,
         device=None,
         **config_kwargs,
@@ -643,6 +665,8 @@ class Enumerator:
             raise ValueError(
                 f"domain_backend must be 'device' or 'numpy', got {domain_backend!r}"
             )
+        if max_cache_entries < 0:
+            raise ValueError(f"max_cache_entries must be >= 0, got {max_cache_entries}")
         cfg = config or EngineConfig(**config_kwargs)
         if config is not None and config_kwargs:
             cfg = dataclasses.replace(config, **config_kwargs)
@@ -660,13 +684,21 @@ class Enumerator:
         self.domain_backend = domain_backend
         self.device = eng.resolve_device(device)
         self.index = SubgraphIndex.build(index) if index is not None else None
+        self.max_cache_entries = max_cache_entries
+        # LRU-ordered uploads per layout: hits move an entry to the back, a
+        # new upload evicts from the front past the bound
         self._rows: "collections.OrderedDict[str, torch.Tensor]" = collections.OrderedDict()
         self._csr: "collections.OrderedDict[str, extend.CsrUpload]" = collections.OrderedDict()
         # the domain fixpoint's target arrays, per cached adjacency upload
         self._dom_targets: Dict[str, Union[dom_mod.TargetDomainArrays,
                                            dom_mod.CsrTargetDomainArrays]] = {}
+        # guards the caches and their counters: a service's dispatcher
+        # thread runs packs while client threads prepare batches and retire
+        # index versions (invalidate_index)
+        self._cache_lock = threading.Lock()
         self.uploads = 0
         self.cache_hits = 0
+        self.evictions = 0
         # sticky high-water match-ring size for seeded delta runs (see
         # _run_seeded): grow-retries fold into one steady-state size
         self._delta_mcap = self._DELTA_MCAP
@@ -675,9 +707,14 @@ class Enumerator:
 
     def cache_stats(self) -> Dict[str, int]:
         """``uploads`` (adjacency copies made to the device), ``cache_hits``
-        (runs that reused one) and current ``entries``."""
-        return {"uploads": self.uploads, "cache_hits": self.cache_hits,
-                "entries": len(self._rows) + len(self._csr)}
+        (runs that reused one), ``evictions`` (uploads dropped past the
+        bound), current ``entries`` and the configured ``max_entries``
+        (0: two per layout).  The service's metrics snapshot reads it."""
+        with self._cache_lock:
+            return {"uploads": self.uploads, "cache_hits": self.cache_hits,
+                    "evictions": self.evictions,
+                    "entries": len(self._rows) + len(self._csr),
+                    "max_entries": self.max_cache_entries}
 
     cache_info = cache_stats
 
@@ -690,20 +727,24 @@ class Enumerator:
         fingerprint, so a run never reads another version's upload."""
         if not fingerprint:
             return 0
-        dropped = sum(cache.pop(fingerprint, None) is not None
-                      for cache in (self._rows, self._csr))
-        self._dom_targets.pop(fingerprint, None)
+        with self._cache_lock:
+            dropped = sum(cache.pop(fingerprint, None) is not None
+                          for cache in (self._rows, self._csr))
+            self._dom_targets.pop(fingerprint, None)
         return dropped
 
     def _cached(self, cache: "collections.OrderedDict", fp: str, make: Callable):
         """``cache[fp]``, made by ``make()`` and counted as an upload on a
-        miss (keeping the two most recent entries), as a hit otherwise."""
+        miss (keeping the ``max_cache_entries`` most recent entries, two
+        when 0), as a hit otherwise.  The caller holds ``_cache_lock``, so
+        two threads that miss together upload once."""
         hit = cache.get(fp)
         if hit is None:
             hit = cache[fp] = make()
             self.uploads += 1
-            while len(cache) > _ADJ_CACHE_ENTRIES:
+            while len(cache) > (self.max_cache_entries or _ADJ_CACHE_ENTRIES):
                 old, _ = cache.popitem(last=False)
+                self.evictions += 1
                 self._dom_targets.pop(old, None)
         else:
             cache.move_to_end(fp)
@@ -713,12 +754,15 @@ class Enumerator:
     def _adjacency_rows(self, fp: str, adj_bits: np.ndarray) -> torch.Tensor:
         """The kernels' flattened adjacency of index version ``fp`` on the
         device, uploaded once (:func:`~repro_torch.core.extend.upload_rows`)."""
-        return self._cached(self._rows, fp, lambda: extend.upload_rows(adj_bits, self.device))
+        with self._cache_lock:
+            return self._cached(self._rows, fp,
+                                lambda: extend.upload_rows(adj_bits, self.device))
 
     def _csr_upload(self, fp: str, planes: Callable[[], CsrPlanes]) -> extend.CsrUpload:
         """The CSR planes of index version ``fp`` on the device, uploaded
         once (:func:`~repro_torch.core.extend.upload_csr`)."""
-        return self._cached(self._csr, fp, lambda: extend.upload_csr(planes(), self.device))
+        with self._cache_lock:
+            return self._cached(self._csr, fp, lambda: extend.upload_csr(planes(), self.device))
 
     def _plan_arrays(self, queries: Sequence[Query],
                      cfg: Optional[EngineConfig] = None) -> extend.AnyPlanArrays:
@@ -745,21 +789,24 @@ class Enumerator:
         sparse index, the CSR segments over the uploaded ``indices``
         (:class:`~repro_torch.core.domains.CsrTargetDomainArrays`)."""
         fp = index.fingerprint
-        if index.sparse:
-            upload = self._csr_upload(fp, index.csr_planes)
+        with self._cache_lock:
+            if index.sparse:
+                upload = self._cached(self._csr, fp, lambda: extend.upload_csr(
+                    index.csr_planes(), self.device))
+                arrays = self._dom_targets.get(fp)
+                if arrays is None:
+                    arrays = dom_mod.csr_target_domain_arrays(
+                        index.graph, index.w, planes=index.csr_planes(), upload=upload)
+                    self._dom_targets[fp] = arrays
+                return arrays
+            rows = self._cached(self._rows, fp,
+                                lambda: extend.upload_rows(index.packed.adj_bits, self.device))
             arrays = self._dom_targets.get(fp)
             if arrays is None:
-                arrays = dom_mod.csr_target_domain_arrays(
-                    index.graph, index.w, planes=index.csr_planes(), upload=upload)
+                adj_flat = rows[:-1].view(2 * index.n_edge_labels, index.n, index.w)
+                arrays = dom_mod.target_domain_arrays(index.packed, adj_flat=adj_flat)
                 self._dom_targets[fp] = arrays
             return arrays
-        rows = self._adjacency_rows(fp, index.packed.adj_bits)
-        arrays = self._dom_targets.get(fp)
-        if arrays is None:
-            adj_flat = rows[:-1].view(2 * index.n_edge_labels, index.n, index.w)
-            arrays = dom_mod.target_domain_arrays(index.packed, adj_flat=adj_flat)
-            self._dom_targets[fp] = arrays
-        return arrays
 
     # -- preparation -------------------------------------------------------
 
@@ -977,6 +1024,62 @@ class Enumerator:
                 "EngineConfig.stack_cap budget"
             )
         return res
+
+    def warm(
+        self,
+        queries: Iterable[Union[Query, Graph]],
+        collect_matches: int = 0,
+        lanes: int = 1,
+    ) -> Dict[str, int]:
+        """Pay the one-off costs of the given queries' runs up front.
+
+        PyTorch compiles nothing, but a session's first run of a query
+        pays for the upload of its index version's adjacency in the step
+        layout, for loading the kernel libraries its step launches (built
+        with ``nvcc`` first if the build directory lacks them) and for the
+        first use of the engine's ops.  For each satisfiable query this
+        uploads the adjacency through the same cache as :meth:`run_pack`
+        (for a pack of ``lanes`` copies), loads on a CUDA device the
+        libraries of the kernels the resolved step backend and
+        ``use_pallas`` select (:func:`~repro_torch.core.extend.step_kernels`),
+        and runs one **inert** pack of width ``lanes`` (zero stack sizes:
+        the round loop returns at once) through the engine loop.  A
+        partitioned session runs one inert single query through the
+        partitioned loop instead: its runs stream partitions and use no
+        session upload.  Pass the ``collect_matches`` budget later submits
+        will use, as ``repro`` asks.
+
+        Returns ``{"warmed": queries warmed, "uploads": fresh adjacency
+        uploads spent}`` (0 uploads means everything was already warm);
+        unsatisfiable queries are skipped.
+        """
+        before = self.uploads
+        warmed = 0
+        for q in self._coerce_all(queries):
+            if not q.plan.satisfiable:
+                continue
+            cfg = self.config
+            if collect_matches:
+                cfg = dataclasses.replace(cfg, collect_matches=collect_matches)
+            extend.validate_backend_for_plan(cfg, q.plan)
+            if self.device.type == "cuda":
+                kops.load_kernels(extend.step_kernels(cfg, q.plan))
+            if extend.resolve_step_backend_for_plan(cfg, q.plan) == "partitioned":
+                runc = dataclasses.replace(cfg, step_backend="partitioned",
+                                           n_partitions=self._partition_count(cfg, q.plan))
+                pp = extend.plan_partitions(q.plan, runc.n_partitions)
+                arrays = extend.make_part_plan_arrays(q.plan, pp, 0, self.device)
+                state = _inert_state(init_state(q.plan, runc, self.device))
+                spill = init_spill_state(runc.n_workers, runc.resolved_spill_cap(q.plan.p_pad),
+                                         q.plan.p_pad, q.plan.w, self.device)
+                eng._part_engine_loop(runc, arrays, state, spill)
+            else:
+                n = max(lanes, 1)
+                arrays = self._plan_arrays([q] * n, cfg)
+                state = _inert_state(init_state(q.plan, cfg, self.device))
+                eng._engine_loop(cfg, arrays, stack_states([state] * n))
+            warmed += 1
+        return {"warmed": warmed, "uploads": self.uploads - before}
 
     # -- execution: delta ---------------------------------------------------
 

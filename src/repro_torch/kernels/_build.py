@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, List, Sequence
@@ -35,6 +36,13 @@ NVCC_FLAGS = (
 )
 
 _launchers: Dict[str, Callable] = {}
+# builds and loads may be asked for from several threads at once (a
+# service's dispatcher and its clients): one at a time, so a library is
+# compiled once and never loaded half-written
+_build_lock = threading.RLock()
+# the kernel modules' launch counters are bumped under this lock: a
+# service launches kernels from its dispatcher and its client threads
+LAUNCH_LOCK = threading.Lock()
 _LOCAL_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.MULTILINE)
 
 
@@ -85,30 +93,31 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     Raises ``RuntimeError`` with the compiler's output if any compile fails.
     """
     names = list(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = library_path(name)
-        if out.is_file():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".so.log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return seconds
+    with _build_lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for name in names:
+            out = library_path(name)
+            if out.is_file():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True),
+                           tmp, out, time.perf_counter())
+        seconds = {name: 0.0 for name in names}
+        failed = []
+        for name, (proc, tmp, out, t0) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            out.with_suffix(".so.log").write_text(log)
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+                continue
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        if failed:
+            raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        return seconds
 
 
 def build_log(name: str) -> str:
@@ -123,11 +132,14 @@ def launcher(name: str, argtypes: Sequence[type]):
     ctypes would pass them as 32-bit ints."""
     fn = _launchers.get(name)
     if fn is None:
-        build([name])
-        fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _launchers[name] = fn
+        with _build_lock:
+            fn = _launchers.get(name)
+            if fn is None:
+                build([name])
+                fn = getattr(ctypes.CDLL(str(library_path(name))), f"{name}_launch")
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+                _launchers[name] = fn
     return fn
 
 

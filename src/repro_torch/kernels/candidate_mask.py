@@ -61,7 +61,8 @@ def candidate_mask_cuda(rows, dom_bits, pos, row_idx, used) -> torch.Tensor:
             torch.cuda.current_stream(used.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"candidate_mask launch failed with CUDA error {rc}")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out
 
 

@@ -149,7 +149,8 @@ def csr_extend_cuda(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p
             torch.cuda.current_stream(cand.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csr_extend launch failed with CUDA error {rc}")
-    launches["csr_extend"] += 1
+    with _build.LAUNCH_LOCK:
+        launches["csr_extend"] += 1
     return cand2, child, meta
 
 
@@ -169,5 +170,6 @@ def csr_extend_bucketed_cuda(indices, dom_bits, seg_start, seg_len, child_pos, d
             torch.cuda.current_stream(cand.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csr_extend_bucketed launch failed with CUDA error {rc}")
-    launches["csr_extend_bucketed"] += 1
+    with _build.LAUNCH_LOCK:
+        launches["csr_extend_bucketed"] += 1
     return cand2, child, meta

@@ -193,7 +193,8 @@ def _arc_any(name: str, adj: torch.Tensor, plane: Optional[torch.Tensor],
             torch.cuda.current_stream(masks.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
-    launches[name] += 1
+    with _build.LAUNCH_LOCK:
+        launches[name] += 1
     return out
 
 
@@ -271,5 +272,6 @@ def csr_arc_sweep_cuda(seg_start: torch.Tensor, seg_len: torch.Tensor, indices: 
             torch.cuda.current_stream(masks.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"csr_arc_sweep launch failed with CUDA error {rc}")
-    launches["csr_arc_sweep"] += 1
+    with _build.LAUNCH_LOCK:
+        launches["csr_arc_sweep"] += 1
     return out

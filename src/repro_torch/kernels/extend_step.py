@@ -114,5 +114,6 @@ def extend_step_cuda(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
             torch.cuda.current_stream(cand.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"extend_step launch failed with CUDA error {rc}")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return cand2, child, meta

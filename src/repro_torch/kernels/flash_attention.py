@@ -110,5 +110,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             int(is_bf16), scale, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed with CUDA error {rc}")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out if width == d else out[..., :d].contiguous()

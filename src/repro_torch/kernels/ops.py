@@ -10,10 +10,11 @@ the kernels.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable
 
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import candidate_mask as _cm
 from repro_torch.kernels import csr_extend as _ce
 from repro_torch.kernels import domain_ac as _ac
@@ -119,6 +120,26 @@ def flash_attention(q, k, v, block_q: int = 128, block_k: int = 128) -> torch.Te
     if _on_card(q):
         return _fa.flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k)
     return kref.flash_attention_ref(q, k, v)
+
+
+# each kernel's C signature, for loading its library ahead of a launch
+_ARGTYPES = {
+    "candidate_mask": _cm._ARGTYPES, "extend_step": _es._ARGTYPES,
+    "popcount_rows": _pc._ARGTYPES, "adjacency_any": _ac._ARC_ANY_ARGTYPES,
+    "arc_any_sweep": _ac._ARC_ANY_ARGTYPES, "csr_extend": _ce._ARGTYPES,
+    "csr_extend_bucketed": _ce._ARGTYPES, "csr_arc_sweep": _ac._CSR_SWEEP_ARGTYPES,
+    "flash_attention": _fa._ARGTYPES,
+}
+
+
+def load_kernels(names: Iterable[str]) -> None:
+    """Build (where the build directory lacks them) and load the libraries
+    of the named kernels, so that their first launch pays for neither."""
+    names = list(names)
+    if names:
+        _build.build(names)
+    for name in names:
+        _build.launcher(name, _ARGTYPES[name])
 
 
 def launch_counts() -> Dict[str, int]:

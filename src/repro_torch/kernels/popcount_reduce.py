@@ -47,5 +47,6 @@ def popcount_rows_cuda(bits: torch.Tensor) -> torch.Tensor:
             torch.cuda.current_stream(bits.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"popcount_rows launch failed with CUDA error {rc}")
-    launches += 1
+    with _build.LAUNCH_LOCK:
+        launches += 1
     return out

@@ -1,0 +1,4 @@
+"""Command-line entry points of the port (``python -m repro_torch.launch.<name>``):
+
+  serve  — the always-on enumeration service under synthetic clients
+"""

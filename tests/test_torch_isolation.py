@@ -52,6 +52,9 @@ PORT_MODULES = {
     "repro_torch.kernels.extend_step",
     "repro_torch.kernels.ops", "repro_torch.kernels.popcount_reduce",
     "repro_torch.kernels.ref",
+    "repro_torch.serve", "repro_torch.serve.admission", "repro_torch.serve.coalescer",
+    "repro_torch.serve.metrics", "repro_torch.serve.service", "repro_torch.serve.stream",
+    "repro_torch.launch", "repro_torch.launch.serve",
 }
 
 
