@@ -174,11 +174,48 @@ Phases, each printed as one JSON line:
    with and without the warm-up, beside the card's ``nvidia-smi`` line,
    then runs ``repro_torch.launch.serve --smoke --use-pallas`` (which
    checks its own results).
+10. multi-device and the driver — worker stacks sharded over
+   ``Mesh((cuda:0,) * D)`` (one process driving a tuple of devices; one
+   card holds every shard), reusing the targets and queries of phases 3,
+   5, 7 and 8.  10a: phase 3's six queries at D = 1, 2 and 4 through K1
+   and K2, the deepest also edge-seeded at D = 2; 10b: target A's queries
+   at D = 2 through K7 and K6, and target B's hub query edge-seeded at
+   D = 2 through both; 10c: phase 8's query at 2 partitions at D = 1 and 2
+   (K7; K6 at D = 2) and under phase 8's budget at D = 2 through K7 and
+   K6; 10d: phase 7's first edit maintained by ``run_delta`` through K2 at
+   D = 2; 10e: ``repro_torch.launch.sge_run`` on PDBSv1's largest targets
+   (four of 33,067 nodes, CSR-only, ``ri-ds-si-acfc``, prepared through
+   K8 and K3, stepped through K7) in modes ``single``, ``packed`` and
+   ``stream``, and dense through K1 on a 2,400-node PDBSv1-like draw
+   without and with ``--devices 1``.  Gates: every sharded run of 10a and
+   10b equals the unsharded run of the same query on every counter, per
+   worker too, and its match buffer; 10c's matches, states and sorted
+   mappings equal phase 8's monolithic run, and D = 1 equals the unsharded
+   2-partition run on every counter and ``stats`` key; 10d's added and
+   removed mappings equal the unsharded maintainer's; 10e's per-query
+   counters agree across modes and with standalone session runs, and
+   ``--devices 1`` with the unsharded run; K1, K2, K6 and K7 launch in
+   10a–10c, K8 and K3 in 10e; ``--devices`` and ``Enumerator(mesh=)`` past
+   the card count are refused with the count.  With two cards or more,
+   phase 3's queries also go through K1 over 2 (and 4) real cards, each
+   equal to the unsharded run and to the same shards on one card, and
+   phase 8's query at 2 partitions over two cards through K7, equal to two
+   shards on one card on every counter and ``stats`` key, and the driver's
+   dense K1 run with ``--devices`` 2 (and 4) equal to ``--devices 1`` on
+   every query's counters and its entries stolen (``mesh_multi_card``);
+   otherwise it prints ``{"phase":
+   "mesh_multi_card", "ran": false, "count": 1}``.  It prints per D the
+   launches per step, each query's seconds and the steal round's bytes,
+   beside the card's ``nvidia-smi`` line.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before the last line.  Without a CUDA card, or without the repository's
 ``src/`` beside it, the script exits 2 and prints no result.
+
+``python3 chip_smoke.py --multi-card`` runs only the build and
+``mesh_multi_card`` (phase 3's and phase 8's targets built for it), on a
+machine with two cards or more (it exits 2 on one).
 """
 
 from __future__ import annotations
@@ -293,7 +330,23 @@ SVC_TIMEOUT = 180.0
 SVC_KERNELS = {"S1": ("candidate_mask", "csr_extend_bucketed", "csr_arc_sweep",
                       "adjacency_any", "popcount_rows"),
                "S2": ("extend_step",), "S3": ("csr_extend",)}
-# targets and patterns that earlier phases built and phase 9 reuses
+# phase 10, multi-device and the driver: worker stacks sharded over
+# Mesh((cuda:0,) * D) for D in MESH_SHARDS on phase 3's queries (MESH_COLLECT
+# mappings per worker collected, so the match buffers compare too), D = 2 on
+# phase 5's and phase 7's, D = 1 and 2 on phase 8's query (MESH_OOC_COLLECT
+# holds all its mappings); then repro_torch.launch.sge_run on PDBSv1's largest
+# targets CSR-only (target 0 is phase 5's target A) in each mode, and dense
+# through K1 on a PDBSv1-like draw whose numpy preparation takes seconds
+MESH_SHARDS = (1, 2, 4)
+MESH_COLLECT = 16
+MESH_OOC_COLLECT = 4096
+MESH_DRIVER_SCALE = SPARSE_NT / 2400
+MESH_DRIVER_SPARSE = ["--collection", "pdbsv1-like", "--scale", repr(MESH_DRIVER_SCALE),
+                      "--sparse-index", "--step-backend", "csr", "--use-pallas",
+                      "--variant", "ri-ds-si-acfc"]
+MESH_DRIVER_DENSE = ["--collection", "pdbsv1-like", "--scale", "1.0", "--step-backend",
+                     "pallas"]
+# targets and patterns that earlier phases built and phases 9 and 10 reuse
 SHARED = {}
 # K9 edge cases (bh, S, S_kv, d, inputs): one query; ragged lengths; S > S_kv
 # and S < S_kv; d of 16, 64, 80, 128 and 256; every score equal
@@ -834,17 +887,24 @@ def run_edge_seeded_dense(device, index, inst, vertex) -> dict:
     return launches
 
 
-def run_main_path(device):
-    from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
-    from repro_torch.core.ref import ref_enumerate
+def main_target() -> tuple:
+    """Phase 3's target (target 0 of :data:`COLLECTION`), its dense index
+    and its six patterns (``Instance`` objects)."""
+    from repro_torch.core import SubgraphIndex
     from repro_torch.data import graphgen
+
+    insts = graphgen.make_collection(**COLLECTION)
+    target = insts[0].target
+    return target, SubgraphIndex.build(target), [i for i in insts if i.target is target]
+
+
+def run_main_path(device):
+    from repro_torch.core import EngineConfig, Enumerator
+    from repro_torch.core.ref import ref_enumerate
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
-    insts = graphgen.make_collection(**COLLECTION)
-    target = insts[0].target
-    patterns = [i for i in insts if i.target is target]
-    index = SubgraphIndex.build(target)
+    target, index, patterns = main_target()
     setup = dict(phase="main_path_setup", n_t=target.n, edges=target.m // 2,
                  labels=target.n_node_labels, w=index.w, patterns=len(patterns),
                  setup_s=time.perf_counter() - t0)
@@ -899,7 +959,7 @@ def run_main_path(device):
             raise AssertionError(f"{ms.name}: engine {(ms.matches, ms.states)} != "
                                  f"ref_enumerate {(ref.matches, ref.states)}")
     emit(dict(phase="oracle", agree=True, queries=oracle))
-    SHARED["main"] = dict(target=target, index=index)
+    SHARED["main"] = dict(target=target, index=index, patterns=patterns)
     if launches["pallas"]["extend_step"] == 0:
         raise AssertionError("the pallas run never launched extend_step")
     if launches["jnp+use_pallas"]["candidate_mask"] == 0:
@@ -1833,6 +1893,7 @@ def run_sparse_path(device):
     t0 = time.perf_counter()
     hub, hpat = hub_target()
     hindex = SubgraphIndex.build(hub, sparse=True)
+    SHARED["hub"] = dict(index=hindex, pattern=hpat)
     hplanes = hindex.csr_planes()
     hrow = np.diff(hplanes.indptr, axis=1)
     emit(dict(phase="sparse_setup", target="B", n_t=hub.n, arcs=hub.m, w=hindex.w,
@@ -2608,6 +2669,7 @@ def run_dynamic_path(device):
               + len(steps[0][1]), setup_s=setup_s, pick_pattern_s=pick_s))
 
     cur0 = as_mapping_array(ms0)
+    SHARED["dyn"] = dict(index=index0, pattern=pat, edit=steps[0], cur=cur0)
     state = {label: dict(index=index0, cur=cur0) for label in maint}
     launches = {label: {} for label in maint}
     g = tgt
@@ -3317,6 +3379,544 @@ def run_service_path(device, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: multi-device work stealing and the paper's driver
+# ---------------------------------------------------------------------------
+
+def mesh_counters(ms):
+    """Every counter of a run, per worker too, and its match buffer."""
+    buf = ms.engine.match_buf
+    return _counters(ms) + (None if buf is None else buf.tolist(),)
+
+
+def steal_round_bytes(cfg, plan) -> int:
+    """Bytes one sharded steal round gathers to a device: every worker's
+    occupancy and its bottom ``steal_chunk`` entries (depth, mapping, used
+    and candidate words)."""
+    v, c = cfg.n_workers, cfg.steal_chunk
+    used = plan.w if cfg.store_used else 1
+    return 4 * (v + v * c * (1 + plan.p_pad + used + plan.w))
+
+
+def _gate_equal(label, got, want) -> None:
+    if mesh_counters(got) != mesh_counters(want):
+        raise AssertionError(f"{label}: the sharded run differs from the unsharded one: "
+                             f"{_counters(got)[:5]} != {_counters(want)[:5]}")
+
+
+def mesh_dense(device, mesh_of, smi) -> dict:
+    """10a: phase 3's target and six queries at each D through K1 and K2,
+    each equal to the unsharded run; the deepest also edge-seeded at D = 2.
+    Returns the launch counts."""
+    from repro_torch.core import EngineConfig, Enumerator
+
+    main = SHARED["main"]
+    index, patterns = main["index"], main["patterns"]
+    launches, rows = {}, []
+    deepest = None
+    for label, kw in (("pallas", dict(step_backend="pallas")),
+                      ("jnp+use_pallas", dict(step_backend="jnp", use_pallas=True))):
+        cfg = EngineConfig(**ENGINE_KW, **kw)
+        base = Enumerator(index, config=cfg, variant=VARIANT, device=device)
+        qs = [base.prepare(inst.pattern, name=inst.name) for inst in patterns]
+        want = [base.run(q, collect_matches=MESH_COLLECT) for q in qs]
+        if deepest is None:
+            deepest = max(range(len(qs)), key=lambda i: want[i].states)
+        for d in MESH_SHARDS:
+            enum = Enumerator(index, config=cfg, variant=VARIANT, mesh=mesh_of(d))
+            enum.run(qs[deepest])  # warm-up: the first use of the shards' ops
+            got, counts = _launched(lambda: [enum.run(q, collect_matches=MESH_COLLECT)
+                                             for q in qs])
+            _add(launches, counts)
+            for q, g, w in zip(qs, got, want):
+                _gate_equal(f"10a {label} D={d} {q.name}", g, w)
+            prof = profile_query(enum, qs[deepest]) if label == "pallas" else None
+            rows.append(dict(path=label, shards=d, launches=counts,
+                             steal_round_bytes=steal_round_bytes(enum.config, qs[deepest].plan),
+                             match_s=[g.match_s for g in got],
+                             unsharded_match_s=[w.match_s for w in want],
+                             launches_per_step=None if prof is None
+                             else prof.get("launches_per_step"), profile=prof))
+    emit(dict(phase="mesh_dense", nvidia_smi=smi, query_names=[i.name for i in patterns],
+              states=[w.states for w in want], steps=[w.steps for w in want],
+              steals=[w.steals for w in want], runs=rows))
+
+    inst = patterns[deepest]
+    edge = {}
+    for label, kw in (("edge pallas", dict(step_backend="pallas")),
+                      ("edge jnp+use_pallas", dict(step_backend="jnp", use_pallas=True))):
+        cfg = EngineConfig(**ENGINE_KW, **kw, root_seeding="edge")
+        base = Enumerator(index, config=cfg, variant=VARIANT, device=device)
+        q = base.prepare(inst.pattern, name=inst.name, seed_edge="auto")
+        want = base.run(q, collect_matches=MESH_COLLECT)
+        enum = Enumerator(index, config=cfg, variant=VARIANT, mesh=mesh_of(2))
+        got, counts = _launched(lambda: enum.run(q, collect_matches=MESH_COLLECT))
+        _add(launches, counts)
+        _gate_equal(f"10a {label} D=2", got, want)
+        edge[label] = dict(launches=counts, matches=got.matches, states=got.states,
+                           steals=got.steals, match_s=got.match_s, unsharded_s=want.match_s)
+    emit(dict(phase="mesh_dense_edge_seeded", query=inst.name, runs=edge))
+    return launches
+
+
+def mesh_sparse(device, mesh_of) -> dict:
+    """10b: phase 5's target A queries at D = 2 through K7 and K6, and
+    target B's hub query edge-seeded at D = 2 through both, each equal to
+    the unsharded run.  Returns the launch counts."""
+    from repro_torch.core import EngineConfig, Enumerator
+
+    sparse, hub = SHARED["sparse"], SHARED["hub"]
+    launches, rows = {}, []
+    for walk in ("bucketed", "flat"):
+        cfg = EngineConfig(**ENGINE_KW, step_backend="csr", use_pallas=True, csr_walk=walk)
+        base = Enumerator(sparse["index"], config=cfg, variant=SPARSE_VARIANT, device=device)
+        qs = [base.prepare(p, name=n) for p, n in zip(sparse["patterns"], sparse["names"])]
+        want = [base.run(q, collect_matches=MESH_COLLECT) for q in qs]
+        enum = Enumerator(sparse["index"], config=cfg, variant=SPARSE_VARIANT, mesh=mesh_of(2))
+        got, counts = _launched(lambda: [enum.run(q, collect_matches=MESH_COLLECT)
+                                         for q in qs])
+        _add(launches, counts)
+        for q, g, w in zip(qs, got, want):
+            _gate_equal(f"10b target A {walk} {q.name}", g, w)
+        rows.append(dict(target="A", walk=walk, shards=2, launches=counts,
+                         states=[g.states for g in got], steps=[g.steps for g in got],
+                         match_s=[g.match_s for g in got],
+                         unsharded_match_s=[w.match_s for w in want]))
+        cfg = EngineConfig(**ENGINE_KW, step_backend="csr", use_pallas=True, csr_walk=walk,
+                           root_seeding="edge")
+        base = Enumerator(hub["index"], config=cfg, variant=HUB_VARIANT, device=device)
+        q = base.prepare(hub["pattern"], name=f"hub-edge/{walk}", seed_edge="auto")
+        want = base.run(q, collect_matches=MESH_COLLECT)
+        enum = Enumerator(hub["index"], config=cfg, variant=HUB_VARIANT, mesh=mesh_of(2))
+        got, counts = _launched(lambda: enum.run(q, collect_matches=MESH_COLLECT))
+        _add(launches, counts)
+        _gate_equal(f"10b target B edge {walk}", got, want)
+        rows.append(dict(target="B edge-seeded", walk=walk, shards=2, launches=counts,
+                         states=got.states, steps=got.steps, steals=got.steals,
+                         match_s=got.match_s, unsharded_match_s=want.match_s))
+    emit(dict(phase="mesh_sparse", runs=rows))
+    return launches
+
+
+def mesh_outofcore(device, mesh_of) -> dict:
+    """10c: phase 8's query at 2 partitions at D = 1 and 2 and under phase
+    8's budget at D = 2, through K7 and K6: matches, states and sorted
+    mappings equal the monolithic run's, and D = 1 equals the unsharded
+    2-partition run on every counter and ``stats`` key.  Returns the
+    launch counts."""
+    from repro_torch.core import EngineConfig, Enumerator
+    from repro_torch.core import engine as eng
+
+    ooc = SHARED["ooc"]
+    mono = Enumerator(ooc["index"], config=EngineConfig(**OOC_KW, step_backend="csr",
+                                                        use_pallas=True), device=device)
+    q = mono.prepare(ooc["pattern"], name="outofcore")
+    whole = mono.run(q, collect_matches=MESH_OOC_COLLECT)
+    maps = sorted(whole.mappings())
+    if (whole.matches, whole.states) != (ooc["matches"], ooc["states"]) or len(maps) != whole.matches:
+        raise AssertionError(f"10c: the monolithic run {(whole.matches, whole.states)} != "
+                             f"phase 8's {(ooc['matches'], ooc['states'])}")
+    launches, rows, results = {}, [], {}
+    # the monolithic run sharded: phase 8's query steals, so the exchange
+    # moves entries between shards
+    for d in (2, 4):
+        enum = Enumerator(ooc["index"], config=mono.config, mesh=mesh_of(d))
+        got, counts = _launched(lambda: enum.run(q, collect_matches=MESH_OOC_COLLECT))
+        _add(launches, counts)
+        _gate_equal(f"10c monolithic D={d}", got, whole)
+        rows.append(dict(run=f"monolithic D={d}", walk="bucketed", launches=counts,
+                         matches=got.matches, states=got.states, steps=got.steps,
+                         steals=got.steals, steal_rounds=got.steal_rounds,
+                         match_s=got.match_s, unsharded_match_s=whole.match_s))
+
+    def part_run(label, walk, mesh):
+        cfg = EngineConfig(**OOC_KW, step_backend="partitioned", use_pallas=True, csr_walk=walk,
+                           n_partitions=OOC_N_PARTS, collect_matches=MESH_OOC_COLLECT)
+        stats = {}
+        _sync(device)
+        t0 = time.perf_counter()
+        r, counts = _launched(lambda: eng.run_partitioned(q.plan, cfg, mesh=mesh, device=device,
+                                                          stats=stats))
+        _sync(device)
+        return r, stats, counts, time.perf_counter() - t0
+
+    for label, walk, d in (("unsharded", "bucketed", None), ("D=1", "bucketed", 1),
+                           ("D=2", "bucketed", 2), ("D=2 flat", "flat", 2)):
+        r, stats, counts, secs = part_run(label, walk, None if d is None else mesh_of(d))
+        _add(launches, counts)
+        results[label] = (r, stats)
+        got = sorted(tuple(int(x) for x in row[:whole.plan.n_p])
+                     for row in r.match_buf.reshape(-1, r.match_buf.shape[-1])
+                     if (row[:whole.plan.n_p] >= 0).all())
+        if (r.matches, r.states) != (whole.matches, whole.states) or got != maps:
+            raise AssertionError(f"10c {OOC_N_PARTS} partitions {label}: "
+                                 f"{(r.matches, r.states)} != {(whole.matches, whole.states)}")
+        rows.append(dict(run=f"{OOC_N_PARTS} partitions {label}", walk=walk, launches=counts,
+                         matches=r.matches, states=r.states, steps=r.steps, steals=r.steals,
+                         steal_rounds=r.steal_rounds, stats=stats, seconds=secs))
+    r1, s1 = results["D=1"]
+    r0, s0 = results["unsharded"]
+    if _counters_of(r1) != _counters_of(r0) or s1 != s0:
+        raise AssertionError("10c: D = 1 differs from the unsharded 2-partition run")
+    for walk in ("bucketed", "flat"):
+        enum = Enumerator(ooc["index"], config=EngineConfig(**OOC_KW, use_pallas=True,
+                                                            csr_walk=walk),
+                          memory_budget_bytes=ooc["budget"], mesh=mesh_of(2))
+        qb = enum.prepare(ooc["pattern"], name="outofcore-budget")
+        _sync(device)
+        t0 = time.perf_counter()
+        ms, counts = _launched(lambda: enum.run(qb, collect_matches=MESH_OOC_COLLECT))
+        _sync(device)
+        secs = time.perf_counter() - t0
+        _add(launches, counts)
+        if (ms.matches, ms.states) != (whole.matches, whole.states) or sorted(
+                ms.mappings()) != maps:
+            raise AssertionError(f"10c budget {walk} D=2: {(ms.matches, ms.states)}")
+        rows.append(dict(run=f"budget {walk} D=2", walk=walk, launches=counts,
+                         matches=ms.matches, states=ms.states, steps=ms.steps, steals=ms.steals,
+                         seconds=secs))
+    emit(dict(phase="mesh_outofcore", monolithic=dict(matches=whole.matches,
+                                                      states=whole.states), runs=rows))
+    return launches
+
+
+def _counters_of(r):
+    return (r.matches, r.states, r.steps, r.steals, r.steal_rounds,
+            r.per_worker_states.tolist(), r.per_worker_matches.tolist(),
+            r.per_worker_steals.tolist())
+
+
+def mesh_dynamic(device, mesh_of) -> dict:
+    """10d: phase 7's rule pattern through phase 7's first 1 % edit,
+    maintained by ``run_delta`` through K2 at D = 2 beside the unsharded
+    maintainer: the added and removed mappings must be equal.  Returns the
+    launch counts."""
+    from repro_torch.core import EngineConfig, Enumerator
+
+    dyn = SHARED["dyn"]
+    adds, rems = dyn["edit"]
+    new_index, delta = dyn["index"].update(add_edges=adds, remove_edges=rems)
+    cfg = EngineConfig(**ENGINE_KW, step_backend="jnp", use_pallas=True)
+    out, launches = {}, {}
+    for label, mesh in (("unsharded", None), ("D=2", mesh_of(2))):
+        enum = Enumerator(dyn["index"], config=cfg, variant=VARIANT, mesh=mesh, device=device)
+        q = enum.prepare(dyn["pattern"], index=new_index)
+        _sync(device)
+        t0 = time.perf_counter()
+        dm, counts = _launched(lambda: enum.run_delta(q, dyn["cur"], delta))
+        _sync(device)
+        _add(launches, counts)
+        out[label] = dict(dm=dm, launches=counts, run_delta_s=time.perf_counter() - t0)
+    a, b = out["unsharded"]["dm"], out["D=2"]["dm"]
+    if (sorted(a.added), sorted(a.removed)) != (sorted(b.added), sorted(b.removed)):
+        raise AssertionError("10d: the sharded run_delta differs from the unsharded one")
+    emit(dict(phase="mesh_dynamic", arcs=len(adds) + len(rems),
+              runs={k: dict(added=len(v["dm"].added), removed=len(v["dm"].removed),
+                            states=v["dm"].states, seeds=v["dm"].n_seeds,
+                            anchors=v["dm"].n_anchors, launches=v["launches"],
+                            run_delta_s=v["run_delta_s"]) for k, v in out.items()}))
+    return launches
+
+
+_DRIVER_LINE = re.compile(r"^(\S+)\s+matches=(\d+)\s+states=(\d+)\s+steps=(\d+)")
+_DRIVER_STEALS = re.compile(r"^(\S+)\s+matches=\d+\s+states=\d+\s+steps=\d+\s+steals=(\d+)")
+_DRIVER_MESH = re.compile(r"entries stolen into each device: (.*)$", re.M)
+
+
+def run_driver(argv) -> tuple:
+    """``repro_torch.launch.sge_run.main(argv)`` with its standard output
+    captured: the per-query ``(matches, states, steps)``, the output, the
+    seconds and the launch counts."""
+    import io
+
+    from repro_torch.launch import sge_run
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, counts = _launched(lambda: sge_run.main(argv))
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"sge_run {argv} exited {rc}")
+    out = buf.getvalue()
+    per_query = {}
+    for line in out.splitlines():
+        m = _DRIVER_LINE.match(line)
+        if m:
+            per_query[m.group(1)] = tuple(int(x) for x in m.groups()[1:])
+    return per_query, out, secs, counts
+
+
+def mesh_driver(device) -> dict:
+    """10e: the paper's driver on the card: PDBSv1's largest targets
+    CSR-only through K8 and K3 (preparation) and K7 in each mode, a dense
+    K1 run with and without ``--devices 1``, each query equal across modes
+    and to a standalone session run, and ``--devices`` past the card count
+    refused.  Returns the launch counts."""
+    import functools
+
+    import torch
+
+    from repro_torch.core import EngineConfig, Enumerator, SubgraphIndex
+    from repro_torch.data import graphgen
+
+    launches, rows = {}, []
+    make = graphgen.make_collection
+    # each driver call draws the same collection: draw it once
+    graphgen.make_collection = functools.lru_cache(maxsize=4)(make)
+    try:
+        by_run = {}
+        for label, argv in (("sparse single", MESH_DRIVER_SPARSE + ["--mode", "single"]),
+                            ("sparse packed", MESH_DRIVER_SPARSE + ["--mode", "packed"]),
+                            ("sparse stream", MESH_DRIVER_SPARSE + ["--mode", "stream"]),
+                            ("dense", MESH_DRIVER_DENSE),
+                            ("dense --devices 1", MESH_DRIVER_DENSE + ["--devices", "1"])):
+            per_query, out, secs, counts = run_driver(argv + ["--device", str(device)])
+            _add(launches, counts)
+            by_run[label] = per_query
+            rows.append(dict(run=label, queries=len(per_query), seconds=secs, launches=counts,
+                             totals=out.strip().splitlines()[-1]))
+            kernels = (("csr_arc_sweep", "popcount_rows", "csr_extend_bucketed")
+                       if label.startswith("sparse") else ("extend_step",))
+            if not per_query or not all(counts.get(k) for k in kernels):
+                raise AssertionError(f"10e {label}: {len(per_query)} queries, launches {counts}")
+    finally:
+        graphgen.make_collection = make
+    # standalone session runs of the sparse queries (the driver's defaults:
+    # 16 workers of expand width 4) on a draw of their own, which no driver
+    # run has touched
+    insts = graphgen.make_collection("pdbsv1-like", pattern_edges=(8, 16, 24),
+                                     patterns_per_target=2, scale=MESH_DRIVER_SCALE, seed=7)
+    enum = Enumerator(config=EngineConfig(n_workers=16, expand_width=4, step_backend="csr",
+                                          use_pallas=True),
+                      variant=SPARSE_VARIANT, device=device)
+    indices, standalone = {}, {}
+    for inst in insts:
+        idx = indices.get(id(inst.target))
+        if idx is None:
+            idx = indices[id(inst.target)] = SubgraphIndex.build(inst.target, sparse=True)
+        ms = enum.run(enum.prepare(inst.pattern, name=inst.name, index=idx))
+        standalone[inst.name] = (ms.matches, ms.states, ms.steps)
+    for label in ("sparse single", "sparse packed", "sparse stream"):
+        if by_run[label] != standalone:
+            raise AssertionError(f"10e {label}: the driver's queries != standalone runs")
+    if by_run["dense"] != by_run["dense --devices 1"]:
+        raise AssertionError("10e: --devices 1 differs from the unsharded dense run")
+    count = torch.cuda.device_count()
+    try:
+        run_driver(MESH_DRIVER_DENSE + ["--devices", str(count + 1)])
+    except SystemExit as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"10e: --devices {count + 1} was not refused")
+    if f"only {count} CUDA card" not in refused:
+        raise AssertionError(f"10e: the refusal does not name the card count: {refused!r}")
+    emit(dict(phase="mesh_driver", runs=rows, refused=refused,
+              standalone_queries=len(standalone)))
+    return launches
+
+
+def mesh_multi_card(device, smi: str) -> dict:
+    """Worker stacks over real cards (two or more): phase 3's queries
+    through K1 over ``D`` cards (2, and 4 where there are four), each equal
+    to the unsharded run and to ``D`` shards on one card, and phase 8's
+    query at 2 partitions over two cards through K7, equal to two shards
+    on one card on every counter and ``stats`` key, and monolithic through
+    K7 over 2 (and 4) cards, equal to the unsharded run (this query
+    steals, so entries cross cards), and the driver over 2 (and 4) cards
+    (:func:`mesh_multi_card_driver`).  Prints each query's seconds on
+    cards, on one card and unsharded.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.core import EngineConfig, Enumerator
+    from repro_torch.core import engine as eng
+
+    count = torch.cuda.device_count()
+    main, ooc = SHARED["main"], SHARED["ooc"]
+    cards = [torch.device("cuda", i) for i in range(count)]
+    cfg = EngineConfig(**ENGINE_KW, step_backend="pallas")
+    base = Enumerator(main["index"], config=cfg, variant=VARIANT, device=device)
+    qs = [base.prepare(inst.pattern, name=inst.name) for inst in main["patterns"]]
+    for q in qs:  # warm-up
+        base.run(q)
+    want = [base.run(q, collect_matches=MESH_COLLECT) for q in qs]
+    launches, rows = {}, []
+    for d in [d for d in (2, 4) if d <= count]:
+        got = {}
+        for label, mesh in (("cards", eng.Mesh(tuple(cards[:d]))),
+                            ("one card", eng.Mesh((device,) * d))):
+            enum = Enumerator(main["index"], config=cfg, variant=VARIANT, mesh=mesh)
+            enum.run(qs[0])  # warm-up: the first use of each card's ops
+            got[label], counts = _launched(lambda: [enum.run(q, collect_matches=MESH_COLLECT)
+                                                    for q in qs])
+            _add(launches, counts)
+            for q, g, w in zip(qs, got[label], want):
+                _gate_equal(f"multi-card {label} D={d} {q.name}", g, w)
+        rows.append(dict(shards=d, steals=[w.steals for w in want],
+                         cards_match_s=[g.match_s for g in got["cards"]],
+                         one_card_match_s=[g.match_s for g in got["one card"]],
+                         unsharded_match_s=[w.match_s for w in want]))
+
+    mono = Enumerator(ooc["index"], config=EngineConfig(**OOC_KW, step_backend="csr",
+                                                        use_pallas=True), device=device)
+    oq = mono.prepare(ooc["pattern"], name="outofcore")
+    plan = oq.plan
+    mono.run(oq)  # warm-up
+    owant = mono.run(oq, collect_matches=MESH_OOC_COLLECT)
+    csr_rows = []
+    for d in [d for d in (2, 4) if d <= count]:
+        enum = Enumerator(ooc["index"], config=mono.config, mesh=eng.Mesh(tuple(cards[:d])))
+        enum.run(oq)  # warm-up
+        got, counts = _launched(lambda: enum.run(oq, collect_matches=MESH_OOC_COLLECT))
+        _add(launches, counts)
+        _gate_equal(f"multi-card csr D={d}", got, owant)
+        csr_rows.append(dict(shards=d, steals=got.steals, steal_rounds=got.steal_rounds,
+                             cards_match_s=got.match_s, unsharded_match_s=owant.match_s))
+    pcfg = EngineConfig(**OOC_KW, step_backend="partitioned", use_pallas=True,
+                        n_partitions=OOC_N_PARTS, collect_matches=MESH_OOC_COLLECT)
+    part = {}
+    for label, mesh in (("cards", eng.Mesh(tuple(cards[:2]))),
+                        ("one card", eng.Mesh((device, device)))):
+        stats = {}
+        _sync(device)
+        t0 = time.perf_counter()
+        r, counts = _launched(lambda: eng.run_partitioned(plan, pcfg, mesh=mesh, stats=stats))
+        _sync(device)
+        _add(launches, counts)
+        part[label] = (r, stats, time.perf_counter() - t0)
+    (r2, s2, t2), (r1, s1, t1) = part["cards"], part["one card"]
+    if _counters_of(r2) != _counters_of(r1) or s2 != s1 \
+            or r2.match_buf.tolist() != r1.match_buf.tolist():
+        raise AssertionError("the partitioned run over two cards differs from two shards on one")
+    driver = mesh_multi_card_driver(device, count, launches)
+    if not (launches.get("extend_step") and launches.get("csr_extend_bucketed")):
+        raise AssertionError(f"the multi-card runs launched {launches}")
+    emit(dict(phase="mesh_multi_card", ran=True, count=count, nvidia_smi=smi,
+              query_names=[q.name for q in qs], dense=rows, csr=csr_rows,
+              partitioned=dict(matches=r2.matches, states=r2.states, steps=r2.steps,
+                               steals=r2.steals, cards_s=t2, one_card_s=t1),
+              driver=driver, launches={k: v for k, v in launches.items() if v}))
+    return launches
+
+
+def mesh_multi_card_driver(device, count: int, launches: dict) -> list:
+    """The paper's driver over real cards: the dense K1 run of 10e with
+    ``--devices 1`` and with ``--devices D`` (2, and 4 where there are
+    four), each query's matches, states, steps and steals equal, and the
+    entries stolen into the cards summing to the one-device total (this
+    collection steals).  Adds its launches to ``launches``; returns a row
+    per run."""
+    def steals_of(out):
+        per_query = {m.group(1): int(m.group(2))
+                     for m in map(_DRIVER_STEALS.match, out.splitlines()) if m}
+        per_dev = [int(x.split("=")[1]) for x in _DRIVER_MESH.search(out).group(1).split()]
+        return per_query, per_dev
+
+    rows, want = [], None
+    for d in [d for d in (1, 2, 4) if d <= count]:
+        per_query, out, secs, counts = run_driver(MESH_DRIVER_DENSE
+                                                  + ["--devices", str(d), "--device", str(device)])
+        _add(launches, counts)
+        q_steals, per_dev = steals_of(out)
+        rows.append(dict(devices=d, queries=len(per_query), seconds=secs,
+                         steals_into_device=per_dev, launches={k: v for k, v in counts.items() if v}))
+        if not counts.get("extend_step") or len(per_dev) != d:
+            raise AssertionError(f"driver --devices {d}: launches {counts}, devices {per_dev}")
+        got = (per_query, q_steals, sum(per_dev))
+        if want is None:
+            want = got
+            if not per_query or not want[2] or want[2] != sum(q_steals.values()):
+                raise AssertionError(f"driver --devices 1: {len(per_query)} queries, "
+                                     f"{want[2]} entries stolen, per query {q_steals}")
+        elif got != want:
+            raise AssertionError(f"driver --devices {d} over cards differs from --devices 1")
+    return rows
+
+
+def multi_card_main(device, smi: str) -> int:
+    """``python3 chip_smoke.py --multi-card``: on a machine with two cards
+    or more, the kernel build and :func:`mesh_multi_card` alone (phase 3's
+    and phase 8's targets built for it), ending in ``{"ok": true, ...}``."""
+    import torch
+
+    from repro_torch.core import SubgraphIndex
+    from repro_torch.data import graphgen
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        print(f"chip_smoke: --multi-card needs two cards or more, found {count}",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    target, index, patterns = main_target()
+    SHARED["main"] = dict(target=target, index=index, patterns=patterns)
+    ooc = graphgen.power_law_graph(OOC["n"], avg_deg=OOC["avg_deg"], n_labels=OOC["n_labels"],
+                                   seed=OOC["seed"])
+    SHARED["ooc"] = dict(index=SubgraphIndex.build(ooc, sparse=True),
+                         pattern=graphgen.extract_pattern(ooc, OOC_PATTERN_EDGES,
+                                                          seed=OOC["seed"]))
+    emit(dict(phase="multi_card_setup", count=count, setup_s=time.perf_counter() - t0))
+    mesh_multi_card(device, smi)
+    for line in subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                "--format=csv,noheader"], capture_output=True, text=True,
+                               check=True).stdout.strip().splitlines():
+        print(line, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": count}})
+    return 0
+
+
+def run_mesh_path(device, smi: str) -> dict:
+    """Phase 10: multi-device work stealing (10a–10d) and the paper's
+    driver (10e), reusing the targets and queries of phases 3, 5, 7 and 8.
+    Returns the launch counts of its runs, per kernel."""
+    import torch
+
+    from repro_torch.core import Enumerator
+    from repro_torch.core import engine as eng
+
+    t_phase = time.perf_counter()
+
+    def mesh_of(d):
+        return eng.Mesh((device,) * d)
+
+    total = {}
+    parts = {}
+    for name, fn in (("10a", lambda: mesh_dense(device, mesh_of, smi)),
+                     ("10b", lambda: mesh_sparse(device, mesh_of)),
+                     ("10c", lambda: mesh_outofcore(device, mesh_of)),
+                     ("10d", lambda: mesh_dynamic(device, mesh_of)),
+                     ("10e", lambda: mesh_driver(device))):
+        t0 = time.perf_counter()
+        parts[name] = dict(launches=fn(), seconds=time.perf_counter() - t0)
+        _add(total, parts[name]["launches"])
+    need = {"10a": ("extend_step", "candidate_mask"), "10b": ("csr_extend", "csr_extend_bucketed"),
+            "10c": ("csr_extend", "csr_extend_bucketed"), "10d": ("candidate_mask",),
+            "10e": ("csr_arc_sweep", "popcount_rows", "csr_extend_bucketed", "extend_step")}
+    for name, kernels in need.items():
+        for k in kernels:
+            if not parts[name]["launches"].get(k):
+                raise AssertionError(f"phase {name} never launched {k}")
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        _add(total, mesh_multi_card(device, smi))
+    else:
+        emit(dict(phase="mesh_multi_card", ran=False, count=count))
+    try:
+        Enumerator(SHARED["main"]["index"], mesh=count + 1)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"Enumerator(mesh={count + 1}) was not refused")
+    emit(dict(phase="mesh_done", nvidia_smi=smi, refused=refused,
+              parts={k: dict(seconds=v["seconds"],
+                             launches={n: c for n, c in v["launches"].items() if c})
+                     for k, v in parts.items()},
+              mesh_path_s=time.perf_counter() - t_phase))
+    return total
+
+
 def main() -> int:
     try:
         import torch
@@ -3350,6 +3950,8 @@ def main() -> int:
               flash_attention_sass=k9_sass))
     if k9_sass.get("HGMMA") == 0:
         raise AssertionError(f"K9's bf16 route has no wgmma (HGMMA) in its SASS: {k9_sass}")
+    if "--multi-card" in sys.argv[1:]:
+        return multi_card_main(device, smi)
 
     checks, timing = check_kernels(device)
     checks += check_domain_kernels_edges(device)
@@ -3405,24 +4007,27 @@ def main() -> int:
 
     svc = run_service_path(device, smi)
 
+    mesh = run_mesh_path(device, smi)
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
                             replaces="src/repro/kernels/extend_step.py:125",
                             launches=launches["pallas"]["extend_step"]
                             + launches["edge pallas"]["extend_step"]
-                            + dyn["pallas"]["extend_step"] + svc["extend_step"]),
+                            + dyn["pallas"]["extend_step"] + svc["extend_step"]
+                            + mesh.get("extend_step", 0)),
         "candidate_mask": dict(source="src/repro_torch/csrc/candidate_mask.cu",
                                header="src/repro_torch/csrc/dense_step.cuh",
                                replaces="src/repro/kernels/candidate_mask.py:62",
                                launches=launches["jnp+use_pallas"]["candidate_mask"]
                                + launches["edge jnp+use_pallas"]["candidate_mask"]
                                + dyn["jnp+use_pallas"]["candidate_mask"]
-                               + svc["candidate_mask"]),
+                               + svc["candidate_mask"] + mesh.get("candidate_mask", 0)),
         "popcount_rows": dict(source="src/repro_torch/csrc/popcount_rows.cu",
                               replaces="src/repro/kernels/popcount_reduce.py:31",
                               launches=batch_launches["prepare_batch"]["popcount_rows"]
-                              + svc["popcount_rows"]),
+                              + svc["popcount_rows"] + mesh.get("popcount_rows", 0)),
         "adjacency_any": dict(source="src/repro_torch/csrc/adjacency_any.cu",
                               header="src/repro_torch/csrc/arc_any.cuh",
                               replaces="src/repro/kernels/domain_ac.py:58",
@@ -3436,7 +4041,8 @@ def main() -> int:
                            header="src/repro_torch/csrc/csr_extend.cuh",
                            replaces="src/repro/kernels/csr_extend.py:129",
                            launches=phase5["csr_extend"] + dyn["csr flat"]["csr_extend"]
-                           + ooc["csr_extend"] + svc["csr_extend"]),
+                           + ooc["csr_extend"] + svc["csr_extend"]
+                           + mesh.get("csr_extend", 0)),
         "csr_extend_bucketed": dict(source="src/repro_torch/csrc/csr_extend_bucketed.cu",
                                     header="src/repro_torch/csrc/csr_extend.cuh",
                                     replaces="src/repro/kernels/csr_extend.py:319",
@@ -3444,11 +4050,13 @@ def main() -> int:
                                     + dyn["csr bucketed"]["csr_extend_bucketed"]
                                     + dyn["edge csr bucketed"]["csr_extend_bucketed"]
                                     + ooc["csr_extend_bucketed"]
-                                    + svc["csr_extend_bucketed"]),
+                                    + svc["csr_extend_bucketed"]
+                                    + mesh.get("csr_extend_bucketed", 0)),
         "csr_arc_sweep": dict(source="src/repro_torch/csrc/csr_arc_sweep.cu",
                               header="src/repro_torch/csrc/csr_arc_sweep.cuh",
                               replaces="src/repro/kernels/domain_ac.py:165",
-                              launches=phase5["csr_arc_sweep"] + svc["csr_arc_sweep"]),
+                              launches=phase5["csr_arc_sweep"] + svc["csr_arc_sweep"]
+                              + mesh.get("csr_arc_sweep", 0)),
         "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                                 replaces="src/repro/kernels/flash_attention.py:67",
                                 launches=lm_launches["prefill"]["flash_attention"]

@@ -4,9 +4,8 @@ The array form of the paper's work-stealing DFS: `repro_torch.core.frontier`
 owns the ring-buffer stacks, `repro_torch.core.extend` the expansion step
 (plain PyTorch, or the ``extend_step`` / ``candidate_mask`` CUDA kernels),
 `repro_torch.core.scheduler` the steal policy, and this module the round
-loop and the steal round, and the host scheduling loop of the out-of-core
-path (:func:`run_partitioned`).  A port of the single-device half of
-``repro.core.engine``.
+loop and the steal rounds, and the host scheduling loop of the out-of-core
+path (:func:`run_partitioned`).  A port of ``repro.core.engine``.
 
 ``repro`` runs the loop as a ``lax.while_loop`` on the device, vmapped
 over the queries of a pack.  Here the host drives it: each round enqueues
@@ -17,6 +16,18 @@ condition is false is frozen, counters included, as the vmapped loop
 freezes it; a single query is the pack of one.  ``steps`` advances by
 whole rounds, as in ``repro``, so every counter is identical.
 
+**Multi-device** (``run(plan, cfg, mesh=...)``): ``repro`` shards the
+worker axis over a mesh with ``shard_map``, one program driving every
+device.  The port's counterpart is one process that drives a tuple of
+devices (:class:`Mesh`): the ``V`` worker stacks split into ``D`` equal
+shards, each on its device with its own replica of the plan arrays; each
+shard steps on its device, and the steal round gathers every shard's
+occupancy and bottom rows to every distinct device, plans the same steals
+and lets each shard take the entries addressed to its own receivers
+(:func:`_steal_round_sharded`).  The collectives are copies between
+devices.  Devices may repeat, so one card (or the CPU) can hold several
+shards; the result equals the unsharded run entry for entry.
+
 Counters are per-worker int32; cross-query aggregation happens on the host
 in Python ints.
 """
@@ -24,7 +35,7 @@ in Python ints.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -161,39 +172,56 @@ class EngineResult(NamedTuple):
 # steal round (cross-worker, array ops over the V axis)
 # ---------------------------------------------------------------------------
 
-def _steal_round(cfg: EngineConfig, state: EngineState,
-                 active: Optional[torch.Tensor] = None) -> EngineState:
-    """Move donated stack-bottom entries to empty workers of the same pack
-    lane, in place; lanes where ``active`` is False take no part.
+_STACK_FIELDS = ("st_depth", "st_map", "st_used", "st_cand")
 
-    ``repro`` scatters each donated slot to its receiver and drops the
-    rest; here each receiver's intake slots gather their donor entry
-    (`repro_torch.core.frontier.invert_slots`), so every written slot has
-    one source."""
+
+def _steal_plan(cfg: EngineConfig, sizes: torch.Tensor, s_cap: int):
+    """The steal round's plan over the occupancy ``sizes`` (``[L, V]``), a
+    pure function of it: ``(accepted, src, has, any_transfer)``.
+
+    ``accepted[l, d]`` is how many bottom entries donor ``d`` gives up;
+    intake position ``q`` of receiver ``w`` takes donated slot ``src[l, w,
+    q]`` (donor ``src // C``, its ``src % C``-th bottom entry) where
+    ``has[l, w, q]``, for ``q`` below ``min(recv_cap, s_cap)``;
+    ``any_transfer[l]`` is 1 where lane ``l`` moves anything.  ``repro``
+    scatters each donated slot to its receiver and drops the rest; the
+    port inverts the scatter (`repro_torch.core.frontier.invert_slots`), so
+    every written slot has one source."""
     policy = scheduler.StealPolicy(
         steal_chunk=cfg.steal_chunk, keep_min=cfg.keep_min, recv_cap=cfg.recv_cap
     )
+    n_lanes, v_workers = sizes.shape
+    c = cfg.steal_chunk
+    _, accepted, dest_rank, dest_pos = scheduler.plan_steals(sizes, policy)
+    wor = scheduler.receiver_workers(sizes)  # [L, V] worker per rank
+    slot_j = torch.arange(c, dtype=torch.int32, device=sizes.device).expand(n_lanes, v_workers, c)
+    taken = slot_j < accepted[..., None]
+    rank = dest_rank.clamp(0, v_workers - 1).long().view(n_lanes, -1)
+    dest_w = torch.where(taken, wor.gather(1, rank).view(n_lanes, v_workers, c), -1)
+    n_in = min(cfg.recv_cap, s_cap)
+    flat_dest = torch.where((dest_w >= 0) & (dest_pos < n_in), dest_w * n_in + dest_pos, -1)
+    src, has = frontier.invert_slots(flat_dest.view(n_lanes, -1), v_workers * n_in)
+    return (accepted, src.view(n_lanes, v_workers, n_in), has.view(n_lanes, v_workers, n_in),
+            (accepted.sum(dim=-1) > 0).to(torch.int32))
+
+
+def _steal_round(cfg: EngineConfig, state: EngineState,
+                 active: Optional[torch.Tensor] = None) -> EngineState:
+    """Move donated stack-bottom entries to empty workers of the same pack
+    lane, in place (the plan: :func:`_steal_plan`); lanes where ``active``
+    is False take no part."""
     n_lanes, v_workers, s_cap = state.st_depth.shape
     c = cfg.steal_chunk
     dev = state.st_depth.device
 
     # a frozen lane plans with empty stacks: nothing is donated, so nothing moves
     sizes = state.size if active is None else torch.where(active[:, None], state.size, 0)
-    _, accepted, dest_rank, dest_pos = scheduler.plan_steals(sizes, policy)
-    wor = scheduler.receiver_workers(sizes)  # [L, V] worker per rank
+    accepted, src, has, any_transfer = _steal_plan(cfg, sizes, s_cap)
+    n_in = has.shape[-1]
 
     # donated rows from stack bottoms: donor d slot j = logical position j
-    slot_j = torch.arange(c, dtype=torch.int32, device=dev).expand(n_lanes, v_workers, c)
-    src_slot = ((state.base[..., None] + slot_j) % s_cap).long()
-    taken = slot_j < accepted[..., None]
-    rank = dest_rank.clamp(0, v_workers - 1).long().view(n_lanes, -1)
-    dest_w = torch.where(taken, wor.gather(1, rank).view(n_lanes, v_workers, c), -1)
-
-    # intake position q of receiver w takes the donated slot addressed to it
-    n_in = min(cfg.recv_cap, s_cap)
-    flat_dest = torch.where((dest_w >= 0) & (dest_pos < n_in), dest_w * n_in + dest_pos, -1)
-    src, has = frontier.invert_slots(flat_dest.view(n_lanes, -1), v_workers * n_in)
-    src, has = src.view(n_lanes, v_workers, n_in), has.view(n_lanes, v_workers, n_in)
+    src_slot = ((state.base[..., None] + torch.arange(c, dtype=torch.int32, device=dev))
+                % s_cap).long()
     lane = torch.arange(n_lanes, device=dev)[:, None, None]
     from_slot = src_slot[lane, src // c, src % c]
     # the pack's workers as one flat axis: worker w of lane l is row l·V + w
@@ -205,7 +233,7 @@ def _steal_round(cfg: EngineConfig, state: EngineState,
     has_f = has.flatten(0, 1)
 
     depth_in = state.st_depth.flatten(0, 1)[src_row, from_slot].view(n_lanes, v_workers, n_in)
-    for name in ("st_depth", "st_map", "st_used", "st_cand"):
+    for name in _STACK_FIELDS:
         arr = getattr(state, name).flatten(0, 1)
         frontier.write_slots(arr, didx, dst_slot, arr[src_row, from_slot], has_f)
 
@@ -216,7 +244,7 @@ def _steal_round(cfg: EngineConfig, state: EngineState,
         size=state.size - accepted + recv_cnt,
         steals=state.steals + recv_cnt,
         steal_depth=state.steal_depth + depth_add,
-        steal_rounds=state.steal_rounds + (accepted.sum(dim=-1) > 0).to(torch.int32),
+        steal_rounds=state.steal_rounds + any_transfer,
     )
 
 
@@ -274,11 +302,287 @@ def _engine_loop(cfg: EngineConfig, plan: AnyPlanArrays, state: EngineState) -> 
         state = body(state, None if on.all() else active)
 
 
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= is not ported yet: ROADMAP Queue 1 item 11 (multi-device)"
+# ---------------------------------------------------------------------------
+# multi-device: worker stacks sharded over a tuple of devices
+# ---------------------------------------------------------------------------
+
+def _canonical_device(d) -> torch.device:
+    """``d`` as a ``torch.device`` with a CUDA card's index filled in."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh of devices for the worker axis: the port's counterpart of
+    a 1-D ``jax.sharding.Mesh`` with the axis ``"data"``.
+
+    Shard ``k`` of ``D = len(devices)`` holds workers ``k·V/D`` to
+    ``(k+1)·V/D - 1`` on ``devices[k]``.  Devices may repeat:
+    ``Mesh((cuda:0, cuda:0))`` is two shards on one card, ``Mesh((cpu,) *
+    4)`` four shards on the CPU."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("data",)
+
+    def __post_init__(self):
+        devices = tuple(_canonical_device(d) for d in self.devices)
+        if not devices:
+            raise ValueError("a Mesh needs at least one device")
+        object.__setattr__(self, "devices", devices)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {self.axis_names[0]: len(self.devices)}
+
+    @property
+    def distinct_devices(self) -> Tuple[torch.device, ...]:
+        """Each device once, in mesh order: where plan arrays are replicated."""
+        return tuple(dict.fromkeys(self.devices))
+
+
+def mesh_worker_axis(mesh: Mesh) -> str:
+    """The mesh axis the worker dimension shards over: ``data`` by
+    convention, else the mesh's first axis."""
+    return "data" if "data" in mesh.axis_names else mesh.axis_names[0]
+
+
+def mesh_signature(mesh: Optional[Mesh]) -> Optional[tuple]:
+    """Hashable identity of a mesh: axis names, axis sizes and the device
+    of each shard."""
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_names), tuple(mesh.shape.values()),
+            tuple(str(d) for d in mesh.devices))
+
+
+def coerce_mesh(mesh, device=None) -> Optional[Mesh]:
+    """``None``, a :class:`Mesh`, or an int ``n``: on a CUDA ``device`` the
+    first ``n`` cards (``ValueError`` naming how many exist when there are
+    fewer), on the CPU ``n`` shards on the CPU.  A mesh whose first device
+    is not ``device`` raises ``ValueError``; anything else ``TypeError``."""
+    if mesh is None:
+        return None
+    device = resolve_device(device if device is not None
+                            else mesh.devices[0] if isinstance(mesh, Mesh) else None)
+    if isinstance(mesh, int):
+        if mesh < 1:
+            raise ValueError(f"mesh={mesh}: a mesh needs at least one device")
+        if device.type == "cuda":
+            count = torch.cuda.device_count()
+            if mesh > count:
+                raise ValueError(
+                    f"mesh={mesh} devices requested but only {count} CUDA "
+                    f"card{'s' if count != 1 else ''} on this machine"
+                )
+            mesh = Mesh(tuple(torch.device("cuda", i) for i in range(mesh)))
+        else:
+            mesh = Mesh((device,) * mesh)
+    elif not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a Mesh, int, or None, got {type(mesh)!r}")
+    if mesh.devices[0] != _canonical_device(device):
+        raise ValueError(
+            f"the mesh's first device {mesh.devices[0]} is not the run's device {device}"
         )
+    return mesh
+
+
+def _check_divisible(cfg: EngineConfig, mesh: Mesh) -> int:
+    n_dev = mesh.size
+    if cfg.n_workers % n_dev:
+        raise ValueError(
+            f"n_workers={cfg.n_workers} not divisible by mesh axis "
+            f"{mesh_worker_axis(mesh)!r} size {n_dev}; round up to a multiple"
+        )
+    return cfg.n_workers // n_dev
+
+
+def _own(x: torch.Tensor, device) -> torch.Tensor:
+    """A copy of ``x`` on ``device`` in storage of its own: the steps write
+    in place, so a shard must never be a view of another tensor."""
+    return x.to(device, copy=True).contiguous()
+
+
+def _split(tree, mesh: Mesh, axis: int, replicated: Tuple[str, ...]) -> list:
+    """Each field of a state tuple split along the worker ``axis`` into the
+    mesh's shards, each on its device; the ``replicated`` fields copied to
+    every shard."""
+    n = next(x for name, x in zip(tree._fields, tree)
+             if name not in replicated).shape[axis] // mesh.size
+    return [type(tree)(*(
+        _own(x, dev) if name in replicated else _own(x.narrow(axis, k * n, n), dev)
+        for name, x in zip(tree._fields, tree)))
+        for k, dev in enumerate(mesh.devices)]
+
+
+def _join(shards: Sequence, axis: int, first: Tuple[str, ...], any_of: Tuple[str, ...]):
+    """The inverse of :func:`_split` on the first shard's device: worker
+    fields joined in worker order, the ``first`` fields the first shard's,
+    the ``any_of`` flags set where any shard's is."""
+    home = shards[0][0].device
+    out = {}
+    for name in shards[0]._fields:
+        xs = [getattr(s, name).to(home) for s in shards]
+        out[name] = (torch.stack(xs).any(dim=0) if name in any_of else xs[0] if name in first
+                     else torch.cat(xs, dim=axis))
+    return type(shards[0])(**out)
+
+
+def shard_state(state: EngineState, mesh: Mesh) -> List[EngineState]:
+    """Split a one-query :class:`EngineState` (``[1, V, ...]``) along ``V``
+    into ``D`` shards, each on its mesh device; the loop scalars
+    (``steal_rounds``, ``steps``, ``overflow``) are copied to every shard."""
+    return _split(state, mesh, 1, ("steal_rounds", "steps", "overflow"))
+
+
+def gather_state(shards: Sequence[EngineState]) -> EngineState:
+    """Join shards in worker order on the first shard's device: the
+    inverse of :func:`shard_state`.  ``steal_rounds`` and ``steps`` are the
+    first shard's, ``overflow`` any shard's (``repro``'s replicated
+    out-specs)."""
+    return _join(shards, 1, ("steal_rounds", "steps"), ("overflow",))
+
+
+def shard_spill(spill: SpillState, mesh: Mesh) -> List[SpillState]:
+    """:func:`shard_state` for a :class:`SpillState` (no pack axis):
+    rings split along ``V``, ``sp_overflow`` copied to every shard."""
+    return _split(spill, mesh, 0, ("sp_overflow",))
+
+
+def gather_spill(shards: Sequence[SpillState]) -> SpillState:
+    """Join spill shards in worker order; ``sp_overflow`` is any shard's."""
+    return _join(shards, 0, (), ("sp_overflow",))
+
+
+
+def _steal_round_sharded(cfg: EngineConfig, shards: List[EngineState]) -> List[EngineState]:
+    """One steal round over the worker shards of one query, in place: the
+    multi-shard form of :func:`_steal_round`, entry for entry the same
+    round computed in one address space.
+
+    Every shard's ``size`` is gathered into one ``[V]`` vector, on which
+    the first shard's device plans the steals (the plan is a pure function
+    of it) and inverts them into each receiver's intake sources.  Each
+    shard's bottom ``steal_chunk`` rows of ``st_depth``, ``st_map``,
+    ``st_used`` and ``st_cand`` are gathered to every distinct device (the
+    steal traffic, ``V·C·(1 + P + 2W)`` words per round); each shard then
+    writes the entries addressed to its own receivers and advances its
+    donors' ``base`` and ``size`` by its slice of the global ``accepted``.
+    ``steal_rounds`` counts rounds with any transfer, globally."""
+    _, v_loc, s_cap = shards[0].st_depth.shape
+    c = cfg.steal_chunk
+    home = shards[0].st_depth.device
+
+    sizes = torch.cat([s.size.to(home) for s in shards], dim=1)  # [1, V]
+    accepted, src, has, any_transfer = _steal_plan(cfg, sizes, s_cap)
+    n_in = has.shape[-1]
+    control = (src[0], has[0], accepted[0], any_transfer)
+
+    # each shard's bottom C entries (donor d slot j = logical position j);
+    # the gathers make new tensors, so no shard's stacks alias them
+    def bottom(s: EngineState, name: str) -> torch.Tensor:
+        dev = s.st_depth.device
+        src_slot = ((s.base[0][:, None] + torch.arange(c, device=dev)) % s_cap).long()
+        return getattr(s, name)[0][torch.arange(v_loc, device=dev)[:, None], src_slot]
+
+    donated = {name: [bottom(s, name) for s in shards] for name in _STACK_FIELDS}
+    on_device = {}
+    for dev in dict.fromkeys(s.st_depth.device for s in shards):
+        on_device[dev] = (
+            {name: torch.cat([x.to(dev) for x in xs]) for name, xs in donated.items()},
+            tuple(t.to(dev) for t in control))
+
+    out = []
+    for k, s in enumerate(shards):
+        dev = s.st_depth.device
+        don, (src_g, has_g, acc_g, any_transfer) = on_device[dev]
+        rows = slice(k * v_loc, (k + 1) * v_loc)
+        src_k, has_k = src_g[rows], has_g[rows]
+        d_row, d_col = src_k // c, src_k % c
+        q = torch.arange(n_in, device=dev)
+        dst_slot = (s.base[0][:, None] + q) % s_cap  # receivers are empty
+        didx = torch.arange(v_loc, device=dev)[:, None]
+        for name in _STACK_FIELDS:
+            frontier.write_slots(getattr(s, name)[0], didx, dst_slot,
+                                 don[name][d_row, d_col], has_k)
+        depth_in = don["st_depth"][d_row, d_col]
+        recv_cnt = has_k.sum(dim=-1, dtype=torch.int32)[None]
+        depth_add = torch.where(has_k, depth_in, 0).sum(dim=-1, dtype=torch.int32)[None]
+        acc_k = acc_g[rows][None]
+        out.append(s._replace(
+            base=(s.base + acc_k) % s_cap,  # accepted slots were a bottom prefix
+            size=s.size - acc_k + recv_cnt,
+            steals=s.steals + recv_cnt,
+            steal_depth=s.steal_depth + depth_add,
+            steal_rounds=s.steal_rounds + any_transfer,
+        ))
+    return out
+
+
+def _loop_flags(s: EngineState, *extra: torch.Tensor) -> torch.Tensor:
+    """``[entries, overflowed, steps, *extra]`` of one shard, as int64."""
+    return torch.stack([t.to(torch.int64) for t in (
+        s.size.sum(), s.overflow.any(), s.steps[0]) + extra])
+
+
+def _sync_flags(per_shard: Sequence[torch.Tensor]) -> np.ndarray:
+    """Per-shard int vectors read on the host with one synchronisation."""
+    home = per_shard[0].device
+    return torch.stack([t.to(home) for t in per_shard]).cpu().numpy()
+
+
+def _sharded_engine_loop(cfg: EngineConfig, plans: Sequence[AnyPlanArrays],
+                         shards: List[EngineState]) -> List[EngineState]:
+    """The round loop over the worker shards of one query (``plans[k]``
+    the plan arrays on shard ``k``'s device): each shard's
+    ``rebalance_interval`` steps on its device with ``V/D × expand_width``
+    lanes, one :func:`_steal_round_sharded`, ``steps`` advanced once.  The
+    condition is global: entries left on any shard, ``max_steps``, and no
+    shard overflowed, read with one host synchronisation per round."""
+    max_steps = cfg.max_steps or (1 << 30)
+    shard_cfg = dataclasses.replace(cfg, n_workers=cfg.n_workers // len(shards))
+    expands = [make_expand_fn(shard_cfg, p) for p in plans]
+    steal = cfg.work_stealing and cfg.n_workers > 1
+    while True:
+        flags = _sync_flags([_loop_flags(s) for s in shards])
+        if not (flags[:, 0].sum() > 0 and flags[0, 2] < max_steps and not flags[:, 1].any()):
+            return shards
+        shards = [expand(s) for expand, s in zip(expands, shards)]
+        if steal:
+            shards = _steal_round_sharded(cfg, shards)
+        shards = [s._replace(steps=s.steps + cfg.rebalance_interval) for s in shards]
+
+
+def make_sharded_engine_fn(cfg: EngineConfig, mesh: Mesh):
+    """``(arrays, EngineState) -> EngineState`` with the worker axis of a
+    one-query state sharded over ``mesh``: ``arrays`` maps each distinct
+    device (``str``) to the plan arrays there, and the state lies on the
+    mesh's first device, as the result does.
+
+    ``cfg.n_workers`` must be a multiple of the mesh size (the session
+    snaps it up; `repro_torch.core.session.Enumerator`)."""
+    _check_divisible(cfg, mesh)
+
+    def fn(arrays: Dict[str, AnyPlanArrays], state: EngineState) -> EngineState:
+        shards = _sharded_engine_loop(cfg, [arrays[str(d)] for d in mesh.devices],
+                                      shard_state(state, mesh))
+        return gather_state(shards)
+
+    return fn
+
+
+def run_sharded(plan: SearchPlan, cfg: EngineConfig, mesh: Mesh) -> EngineResult:
+    """Enumerate with worker stacks sharded over ``mesh`` (see :func:`run`),
+    the plan arrays replicated once per distinct device."""
+    fn = make_sharded_engine_fn(cfg, mesh)
+    arrays = {str(d): plan_arrays_for(cfg, [plan], d) for d in mesh.distinct_devices}
+    return result_from_state(fn(arrays, init_state(plan, cfg, mesh.devices[0])), cfg)
 
 
 def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineResult:
@@ -286,11 +590,14 @@ def run(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None) -> EngineRe
     ``device`` (default: the CUDA card; raises without one).  The plan
     arrays follow the resolved step backend (dense bitmaps, or CSR planes
     for ``"csr"`` / large-``n_t`` ``"auto"``); ``"partitioned"`` routes to
-    :func:`run_partitioned`.  ``mesh=`` (worker stacks sharded over
-    several cards) is not ported yet."""
-    _refuse_mesh(mesh)
+    :func:`run_partitioned`.  With ``mesh`` (a :class:`Mesh`, or an int as
+    :func:`coerce_mesh` reads it) the worker stacks shard over its devices
+    (:func:`run_sharded`); the result equals the unsharded run's."""
     if cfg.step_backend == "partitioned":
-        return run_partitioned(plan, cfg, device=device)
+        return run_partitioned(plan, cfg, mesh=mesh, device=device)
+    mesh = coerce_mesh(mesh, device)
+    if mesh is not None:
+        return run_sharded(plan, cfg, mesh)
     device = resolve_device(device)
     arrays = plan_arrays_for(cfg, [plan], device)
     final = _engine_loop(cfg, arrays, init_state(plan, cfg, device))
@@ -366,22 +673,56 @@ def make_part_round_fn(cfg: EngineConfig, plan: extend.PartPlanArrays):
     return body
 
 
-def _part_engine_loop(cfg: EngineConfig, plan: extend.PartPlanArrays,
-                      st: EngineState, spill: SpillState):
-    """Run partitioned rounds until the live stacks drain, ``max_steps`` is
-    reached, a stack or a spill ring overflows, or a ring crosses its drain
-    watermark: ``repro``'s ``while_loop`` condition, read once per round
-    (one host synchronisation).  The host then drains the rings and, if
-    work remains, comes back with the same live state."""
+def _part_engine_loop(cfg: EngineConfig, plans: Sequence[extend.PartPlanArrays],
+                      sts: List[EngineState], spills: List[SpillState]):
+    """Run partitioned rounds over the worker shards of one leg (one shard
+    without a mesh; ``plans[k]`` the resident partition on shard ``k``'s
+    device) until the live stacks drain, ``max_steps`` is reached, a stack
+    or a spill ring overflows, or a ring crosses its drain watermark:
+    ``repro``'s ``while_loop`` condition, taken over all shards and read
+    once per round (one host synchronisation).  The host then drains the
+    rings and, if work remains, comes back with the same live state.
+
+    Each shard's round is :func:`make_part_round_fn` over its own workers,
+    **its steal round included**: as in ``repro``
+    (``_part_sharded_device_loop``), under a mesh entries are stolen only
+    within a shard, and each shard counts its own ``steal_rounds`` (ROADMAP
+    Queue 3 f)."""
     max_steps = cfg.max_steps or (1 << 30)
-    body = make_part_round_fn(cfg, plan)
+    shard_cfg = dataclasses.replace(cfg, n_workers=cfg.n_workers // len(sts))
+    bodies = [make_part_round_fn(shard_cfg, p) for p in plans]
     margin = part_spill_margin(cfg)
     while True:
-        go = ((st.size.sum() > 0) & (st.steps < max_steps).all() & ~st.overflow.any()
-              & ~spill.sp_overflow & ~frontier.spill_watermark(spill, margin))
-        if not bool(go):
+        flags = _sync_flags([_loop_flags(st, sp.sp_overflow, frontier.spill_watermark(sp, margin))
+                             for st, sp in zip(sts, spills)])
+        if not (flags[:, 0].sum() > 0 and flags[0, 2] < max_steps
+                and not flags[:, [1, 3, 4]].any()):
+            return sts, spills
+        sts, spills = map(list, zip(*(body(st, sp) for body, st, sp in zip(bodies, sts, spills))))
+
+
+def make_partitioned_engine_fn(cfg: EngineConfig, mesh: Optional[Mesh] = None):
+    """``(arrays, EngineState, SpillState) -> (EngineState, SpillState)``:
+    the inner engine of one leg of :func:`run_partitioned`.  Without a mesh
+    ``arrays`` is the resident partition's :class:`~repro_torch.core.extend.
+    PartPlanArrays`; with one, a map from each distinct device (``str``) to
+    its replica, and the states lie on the mesh's first device, sharded
+    inside and gathered in worker order after."""
+    if mesh is None:
+        def one(arrays, st: EngineState, spill: SpillState):
+            (st,), (spill,) = _part_engine_loop(cfg, [arrays], [st], [spill])
             return st, spill
-        st, spill = body(st, spill)
+
+        return one
+    _check_divisible(cfg, mesh)
+
+    def fn(arrays, st: EngineState, spill: SpillState):
+        sts, spills = _part_engine_loop(
+            cfg, [arrays[str(d)] for d in mesh.devices],
+            shard_state(st, mesh), shard_spill(spill, mesh))
+        return gather_state(sts), gather_spill(spills)
+
+    return fn
 
 
 def _intake_entry(plan: SearchPlan, pp, pid: int, depth: int,
@@ -508,13 +849,20 @@ def run_partitioned(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None,
     its pool.  A stack or spill-ring overflow retries the leg with that
     capacity doubled, at most :data:`_PART_MAX_ATTEMPTS` times.
 
+    With ``mesh`` (see :func:`coerce_mesh`) worker stacks and spill rings
+    shard over its devices and the resident partition is replicated
+    (:func:`make_partitioned_engine_fn`); the host drains the rings
+    gathered in worker order, and the next partition is the next one with
+    a non-empty pool, round-robin, as in ``repro``.
+
     ``stats``, if given, is filled with ``repro``'s scheduling counters
-    (resident bytes, visits, legs, rounds, spills, deaths).  ``mesh=`` is
-    not ported yet."""
-    _refuse_mesh(mesh)
-    device = resolve_device(device)
+    (resident bytes, visits, legs, rounds, spills, deaths)."""
+    mesh = coerce_mesh(mesh, device)
+    device = mesh.devices[0] if mesh is not None else resolve_device(device)
     if cfg.step_backend != "partitioned":
         cfg = dataclasses.replace(cfg, step_backend="partitioned")
+    if mesh is not None:
+        _check_divisible(cfg, mesh)
     n_parts = max(1, cfg.n_partitions)
     pp = extend.plan_partitions(plan, n_parts)
     p_pad, w, v = plan.p_pad, plan.w, cfg.n_workers
@@ -537,12 +885,13 @@ def run_partitioned(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None,
         Returns the final state and the leg's drained spill entries."""
         nonlocal leg_cfg, n_rounds
         for _ in range(_PART_MAX_ATTEMPTS):
+            fn = make_partitioned_engine_fn(leg_cfg, mesh)
             st = frontier.init_delta_state(plan, leg_cfg, *seed, device)
             spill = frontier.init_spill_state(v, leg_cfg.resolved_spill_cap(p_pad), p_pad, w,
                                               device)
             staged = []
             while True:
-                st, spill = _part_engine_loop(leg_cfg, arrays, st, spill)
+                st, spill = fn(arrays, st, spill)
                 n_rounds += 1
                 if bool(st.overflow.any()):
                     leg_cfg = dataclasses.replace(
@@ -600,7 +949,11 @@ def run_partitioned(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None,
 
     current = next((pid for pid in range(n_parts) if pools[pid]), None)
     while current is not None:
-        arrays = extend.make_part_plan_arrays(plan, pp, current, device)
+        if mesh is None:
+            arrays = extend.make_part_plan_arrays(plan, pp, current, device)
+        else:
+            arrays = {str(d): extend.make_part_plan_arrays(plan, pp, current, d)
+                      for d in mesh.distinct_devices}
         n_visits += 1
         while True:
             chunk_n = v * max(leg_cfg.resolved_stack_cap(p_pad) // 2, 1)
@@ -612,11 +965,15 @@ def run_partitioned(plan: SearchPlan, cfg: EngineConfig, mesh=None, device=None,
                 break  # the partition is quiescent
             absorb(*run_leg(arrays, (sd, sm, sc)))
             n_legs += 1
-        # the deepest spill pool next
-        nxt, depth_best = None, 0
-        for pid in range(n_parts):
-            if len(pools[pid]) > depth_best:
-                nxt, depth_best = pid, len(pools[pid])
+        nxt = None
+        if mesh is not None:  # round-robin partition rotation under a mesh
+            nxt = next((p % n_parts for p in range(current + 1, current + n_parts + 1)
+                        if pools[p % n_parts]), None)
+        else:  # the deepest spill pool next
+            depth_best = 0
+            for pid in range(n_parts):
+                if len(pools[pid]) > depth_best:
+                    nxt, depth_best = pid, len(pools[pid])
         current = nxt
 
     if stats is not None:

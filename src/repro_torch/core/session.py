@@ -1,6 +1,6 @@
 """Prepared-query session API for subgraph enumeration.
 
-A port of ``repro.core.session`` (all but meshes):
+A port of ``repro.core.session``:
 
 * :class:`SubgraphIndex` — a prepared target: the :class:`PackedGraph`
   bitmaps plus label/degree metadata, built once and reused across
@@ -41,6 +41,14 @@ contiguous partitions whose padded resident planes fit ``N`` bytes
 instead), and a run streams them through the device
 (`repro_torch.core.engine.run_partitioned`).  Such a session runs the
 queries of a pack or a stream one by one, as ``repro``'s does.
+
+``Enumerator(..., mesh=...)`` shards each run's worker stacks over a
+:class:`~repro_torch.core.engine.Mesh` of devices (an int ``n``: the
+first ``n`` cards, or ``n`` shards on a CPU session), with plan arrays
+replicated once per distinct device (`repro_torch.core.engine`).
+``n_workers`` snaps up to a multiple of the mesh size; results equal the
+unsharded session's, and packs and streams run their queries singly, as
+``repro``'s mesh sessions do.
 
 An explicitly dense step backend (``"jnp"`` / ``"pallas"``) cannot run a
 CSR-only plan; the session raises ``ValueError`` at prepare and run entry.
@@ -148,10 +156,6 @@ def snap_batch_pad(n: int) -> int:
     The lanes beyond the batch are frozen from the start, so they cost no
     sweep."""
     return 1 << max(n - 1, 0).bit_length()
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP Queue 1 item {item}")
 
 
 def _match_count(old) -> int:
@@ -645,6 +649,15 @@ class Enumerator:
     ``domain_backend`` picks where :meth:`prepare_batch` (and so the
     batched methods, for raw patterns) computes domains: ``"device"`` (the
     default) or ``"numpy"`` (per-query host preprocessing).
+
+    ``mesh`` (``None``, a :class:`~repro_torch.core.engine.Mesh`, or an
+    int: the first ``n`` cards on a CUDA session, ``n`` shards on a CPU
+    one) shards every run's worker stacks over the mesh's devices; the
+    mesh's first device is the session's (``device=None`` takes it from a
+    ``Mesh``), and ``n_workers`` snaps up to a multiple of the mesh size.
+    Each upload then holds one replica per distinct device of the mesh, and
+    ``uploads`` counts an index version's upload in one layout once,
+    however many replicas it made.
     """
 
     def __init__(
@@ -659,8 +672,6 @@ class Enumerator:
         device=None,
         **config_kwargs,
     ):
-        if mesh is not None:
-            raise _not_ported("Enumerator(mesh=...)", "11 (multi-device)")
         if domain_backend not in ("device", "numpy"):
             raise ValueError(
                 f"domain_backend must be 'device' or 'numpy', got {domain_backend!r}"
@@ -679,10 +690,21 @@ class Enumerator:
             # is derived per target (_partition_count)
             cfg = dataclasses.replace(cfg, step_backend="partitioned")
         self.memory_budget_bytes = memory_budget_bytes
+        if device is None and isinstance(mesh, eng.Mesh):
+            device = mesh.devices[0]
+        self.device = eng.resolve_device(device)
+        self.mesh = eng.coerce_mesh(mesh, self.device)
+        # where uploads are replicated: each distinct device of the mesh
+        self._devices = (self.device,)
+        if self.mesh is not None:
+            self.device = self.mesh.devices[0]  # a card's index filled in
+            self._devices = self.mesh.distinct_devices
+            # snap up so every shard owns the same number of stacks
+            n_dev = self.mesh.size
+            cfg = dataclasses.replace(cfg, n_workers=-(-cfg.n_workers // n_dev) * n_dev)
         self.config = cfg
         self.variant = variant
         self.domain_backend = domain_backend
-        self.device = eng.resolve_device(device)
         self.index = SubgraphIndex.build(index) if index is not None else None
         self.max_cache_entries = max_cache_entries
         # LRU-ordered uploads per layout: hits move an entry to the back, a
@@ -751,35 +773,68 @@ class Enumerator:
             self.cache_hits += 1
         return hit
 
-    def _adjacency_rows(self, fp: str, adj_bits: np.ndarray) -> torch.Tensor:
-        """The kernels' flattened adjacency of index version ``fp`` on the
-        device, uploaded once (:func:`~repro_torch.core.extend.upload_rows`)."""
+    def _replicated(self, make_one: Callable) -> Callable[[], Dict[str, object]]:
+        """A ``make`` for :meth:`_cached`: ``make_one(device)`` on each
+        distinct device of the session, keyed by the device's name."""
+        return lambda: {str(d): make_one(d) for d in self._devices}
+
+    def _row_uploads(self, fp: str, adj_bits: np.ndarray) -> Dict[str, torch.Tensor]:
+        """The kernels' flattened adjacency of index version ``fp`` on each
+        device of the session, uploaded once
+        (:func:`~repro_torch.core.extend.upload_rows`)."""
         with self._cache_lock:
-            return self._cached(self._rows, fp,
-                                lambda: extend.upload_rows(adj_bits, self.device))
+            return self._cached(self._rows, fp, self._replicated(
+                lambda d: extend.upload_rows(adj_bits, d)))
+
+    def _csr_uploads(self, fp: str,
+                     planes: Callable[[], CsrPlanes]) -> Dict[str, extend.CsrUpload]:
+        """The CSR planes of index version ``fp`` on each device of the
+        session, uploaded once (:func:`~repro_torch.core.extend.upload_csr`)."""
+        with self._cache_lock:
+            return self._cached(self._csr, fp, self._replicated(
+                lambda d: extend.upload_csr(planes(), d)))
+
+    def _adjacency_rows(self, fp: str, adj_bits: np.ndarray) -> torch.Tensor:
+        """:meth:`_row_uploads` on the session's device."""
+        return self._row_uploads(fp, adj_bits)[str(self.device)]
 
     def _csr_upload(self, fp: str, planes: Callable[[], CsrPlanes]) -> extend.CsrUpload:
-        """The CSR planes of index version ``fp`` on the device, uploaded
-        once (:func:`~repro_torch.core.extend.upload_csr`)."""
-        with self._cache_lock:
-            return self._cached(self._csr, fp, lambda: extend.upload_csr(planes(), self.device))
+        """:meth:`_csr_uploads` on the session's device."""
+        return self._csr_uploads(fp, planes)[str(self.device)]
 
-    def _plan_arrays(self, queries: Sequence[Query],
-                     cfg: Optional[EngineConfig] = None) -> extend.AnyPlanArrays:
-        """The plans of a pack (one coalesce key) on the device in the
-        layout of the step backend ``cfg`` resolves for them, with their
-        index's adjacency uploaded once per index version (hand-built
-        queries without an index upload their own)."""
+    def _plan_replicas(self, queries: Sequence[Query],
+                       cfg: Optional[EngineConfig] = None) -> Dict[str, extend.AnyPlanArrays]:
+        """The plans of a pack (one coalesce key) on each device of the
+        session, keyed by the device's name, in the layout of the step
+        backend ``cfg`` resolves for them, with their index's adjacency
+        uploaded once per index version (hand-built queries without an
+        index upload their own)."""
         cfg = cfg or self.config
         plans = [q.plan for q in queries]
         fp = queries[0].index_fingerprint
         if not fp:
-            return extend.plan_arrays_for(cfg, plans, self.device)
+            return {str(d): extend.plan_arrays_for(cfg, plans, d) for d in self._devices}
         if extend.resolve_step_backend_for_plan(cfg, plans[0]) == "csr":
-            csr = self._csr_upload(fp, lambda: extend.plan_csr(plans[0]))
-            return extend.plan_arrays_for(cfg, plans, self.device, csr=csr)
-        rows = self._adjacency_rows(fp, plans[0].adj_bits)
-        return extend.plan_arrays_for(cfg, plans, self.device, rows=rows)
+            ups = self._csr_uploads(fp, lambda: extend.plan_csr(plans[0]))
+            return {name: extend.plan_arrays_for(cfg, plans, torch.device(name), csr=up)
+                    for name, up in ups.items()}
+        ups = self._row_uploads(fp, plans[0].adj_bits)
+        return {name: extend.plan_arrays_for(cfg, plans, torch.device(name), rows=up)
+                for name, up in ups.items()}
+
+    def _plan_arrays(self, queries: Sequence[Query],
+                     cfg: Optional[EngineConfig] = None) -> extend.AnyPlanArrays:
+        """:meth:`_plan_replicas` on the session's device."""
+        return self._plan_replicas(queries, cfg)[str(self.device)]
+
+    def _run_engine(self, cfg: EngineConfig, queries: Sequence[Query],
+                    state: EngineState) -> EngineState:
+        """The round loop over ``state``: sharded over the session's mesh
+        (one query), or on its device."""
+        if self.mesh is None:
+            return eng._engine_loop(cfg, self._plan_arrays(queries, cfg), state)
+        fn = eng.make_sharded_engine_fn(cfg, self.mesh)
+        return fn(self._plan_replicas(queries, cfg), state)
 
     def _target_domain_arrays(self, index: SubgraphIndex):
         """The domain fixpoint's target arrays for ``index``, built around
@@ -791,16 +846,16 @@ class Enumerator:
         fp = index.fingerprint
         with self._cache_lock:
             if index.sparse:
-                upload = self._cached(self._csr, fp, lambda: extend.upload_csr(
-                    index.csr_planes(), self.device))
+                upload = self._cached(self._csr, fp, self._replicated(
+                    lambda d: extend.upload_csr(index.csr_planes(), d)))[str(self.device)]
                 arrays = self._dom_targets.get(fp)
                 if arrays is None:
                     arrays = dom_mod.csr_target_domain_arrays(
                         index.graph, index.w, planes=index.csr_planes(), upload=upload)
                     self._dom_targets[fp] = arrays
                 return arrays
-            rows = self._cached(self._rows, fp,
-                                lambda: extend.upload_rows(index.packed.adj_bits, self.device))
+            rows = self._cached(self._rows, fp, self._replicated(
+                lambda d: extend.upload_rows(index.packed.adj_bits, d)))[str(self.device)]
             arrays = self._dom_targets.get(fp)
             if arrays is None:
                 adj_flat = rows[:-1].view(2 * index.n_edge_labels, index.n, index.w)
@@ -975,14 +1030,13 @@ class Enumerator:
         return self._matchset(query, -1, res, match_s, retries=retries)
 
     def _run_single(self, cfg: EngineConfig, query: Query) -> EngineResult:
-        """One engine invocation, a pack of one (no retry), or one
-        out-of-core run."""
+        """One engine invocation, a pack of one (no retry) or sharded over
+        the mesh, or one out-of-core run."""
         extend.validate_backend_for_plan(cfg, query.plan)
         if extend.resolve_step_backend_for_plan(cfg, query.plan) == "partitioned":
             return self._run_partitioned(cfg, query)
-        arrays = self._plan_arrays([query], cfg)
         state = init_state(query.plan, cfg, self.device)
-        return eng.result_from_state(eng._engine_loop(cfg, arrays, state), cfg)
+        return eng.result_from_state(self._run_engine(cfg, [query], state), cfg)
 
     def _partition_count(self, cfg: EngineConfig, plan: SearchPlan) -> int:
         """Partition count for a plan under this session: an explicit
@@ -997,12 +1051,12 @@ class Enumerator:
 
     def _run_partitioned(self, cfg: EngineConfig, query: Query) -> EngineResult:
         """One out-of-core run (:func:`~repro_torch.core.engine.run_partitioned`)
-        at this session's partition count.  It uploads one partition's
-        planes per visit, never the whole target's, so it does not use the
-        session's adjacency cache."""
+        at this session's partition count, over its mesh if it has one.  It
+        uploads one partition's planes per visit, never the whole target's,
+        so it does not use the session's adjacency cache."""
         runc = dataclasses.replace(cfg, step_backend="partitioned",
                                    n_partitions=self._partition_count(cfg, query.plan))
-        return eng.run_partitioned(query.plan, runc, device=self.device)
+        return eng.run_partitioned(query.plan, runc, mesh=self.mesh, device=self.device)
 
     def _retry_overflowed(self, cfg: EngineConfig, query: Query) -> EngineResult:
         """``cfg``'s run of ``query`` overflowed (undercounted): warn and
@@ -1046,8 +1100,11 @@ class Enumerator:
         the round loop returns at once) through the engine loop.  A
         partitioned session runs one inert single query through the
         partitioned loop instead: its runs stream partitions and use no
-        session upload.  Pass the ``collect_matches`` budget later submits
-        will use, as ``repro`` asks.
+        session upload.  Under a mesh every query runs singly, so ``lanes``
+        is ignored and the inert query goes through the sharded loop (with
+        an upload to each device of the mesh).  Pass the
+        ``collect_matches`` budget later submits will use, as ``repro``
+        asks.
 
         Returns ``{"warmed": queries warmed, "uploads": fresh adjacency
         uploads spent}`` (0 uploads means everything was already warm);
@@ -1068,11 +1125,16 @@ class Enumerator:
                 runc = dataclasses.replace(cfg, step_backend="partitioned",
                                            n_partitions=self._partition_count(cfg, q.plan))
                 pp = extend.plan_partitions(q.plan, runc.n_partitions)
-                arrays = extend.make_part_plan_arrays(q.plan, pp, 0, self.device)
+                arrays = {str(d): extend.make_part_plan_arrays(q.plan, pp, 0, d)
+                          for d in self._devices}
                 state = _inert_state(init_state(q.plan, runc, self.device))
                 spill = init_spill_state(runc.n_workers, runc.resolved_spill_cap(q.plan.p_pad),
                                          q.plan.p_pad, q.plan.w, self.device)
-                eng._part_engine_loop(runc, arrays, state, spill)
+                eng.make_partitioned_engine_fn(runc, self.mesh)(
+                    arrays if self.mesh is not None else arrays[str(self.device)],
+                    state, spill)
+            elif self.mesh is not None:
+                self._run_engine(cfg, [q], _inert_state(init_state(q.plan, cfg, self.device)))
             else:
                 n = max(lanes, 1)
                 arrays = self._plan_arrays([q] * n, cfg)
@@ -1222,9 +1284,8 @@ class Enumerator:
             cap = cap0
             while True:
                 cfg = dataclasses.replace(cfg0, collect_matches=mcap, stack_cap=cap)
-                arrays = self._plan_arrays([aq], cfg)
                 state = init_delta_state(aplan, cfg, cs, cm, cc, self.device)
-                res = eng.result_from_state(eng._engine_loop(cfg, arrays, state), cfg)
+                res = eng.result_from_state(self._run_engine(cfg, [aq], state), cfg)
                 if res.overflow:
                     if cap >= cap0 * 4:
                         raise RuntimeError(
@@ -1293,7 +1354,7 @@ class Enumerator:
         pack; mixed keys raise.  Unsatisfiable queries get empty results
         without touching the engine.  ``cfg`` overrides the session config;
         overflowed lanes go through the doubled-``stack_cap`` single retry.
-        Under the partitioned backend the queries run one by one.
+        Under the partitioned backend or a mesh the queries run one by one.
         """
         cfg = cfg or self.config
         qs = self._coerce_all(queries)
@@ -1312,8 +1373,9 @@ class Enumerator:
                     f"run_pack requires one coalesce_key per pack, got {len(keys)}: "
                     f"{sorted(keys)}"
                 )
-            if cfg.step_backend == "partitioned":
-                # the host partition-scheduling loop runs one query at a time
+            if self.mesh is not None or cfg.step_backend == "partitioned":
+                # the sharded loop and the host partition-scheduling loop
+                # run one query at a time
                 for i in live:
                     out[i] = self.run(qs[i], collect_matches=cfg.collect_matches)
                     out[i].query_index = i
@@ -1334,11 +1396,12 @@ class Enumerator:
         of ``pack_size`` (padded with inert lanes, as in ``repro``), and run
         pack by pack; each finished pack yields its results at once.
         ``MatchSet.query_index`` carries the position in the input.  Under
-        the partitioned backend each query runs singly, in input order.
+        the partitioned backend or a mesh each query runs singly, in input
+        order.
         """
         qs: List[Query] = self._coerce_all(queries)
         cfg = self.config
-        if cfg.step_backend == "partitioned":
+        if self.mesh is not None or cfg.step_backend == "partitioned":
             for i, q in enumerate(qs):
                 if not q.plan.satisfiable:
                     yield self._matchset(q, i, _empty_engine_result(), 0.0)

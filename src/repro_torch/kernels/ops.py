@@ -36,11 +36,22 @@ def _on_card(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel for tensors on {t.device}")
 
 
+def _launch(t: torch.Tensor, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with ``t``'s card as the current device: a
+    kernel launches on the current device, so tensors on another card (a
+    shard of a multi-card mesh) need it switched.  On the current card, the
+    single-card path, nothing is switched."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args, **kwargs)
+    with torch.cuda.device(t.device):
+        return fn(*args, **kwargs)
+
+
 def candidate_mask(rows, dom_bits, pos, row_idx, used) -> torch.Tensor:
     """K2: ``dom[pos] ∧ ¬used ∧ ⋀_j rows[row_idx[:, j]]`` per lane
     (see `repro_torch.kernels.candidate_mask`)."""
     if _on_card(used):
-        return _cm.candidate_mask_cuda(rows, dom_bits, pos, row_idx, used)
+        return _launch(used, _cm.candidate_mask_cuda, rows, dom_bits, pos, row_idx, used)
     return kref.candidate_mask_ref(rows, dom_bits, pos, row_idx, used)
 
 
@@ -48,7 +59,8 @@ def extend_step(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand):
     """K1: the fused expansion step; returns ``(cand2, child, meta)``
     (see `repro_torch.kernels.extend_step`)."""
     if _on_card(cand):
-        return _es.extend_step_cuda(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
+        return _launch(cand, _es.extend_step_cuda, rows, dom_bits, child_pos, row_idx, depth,
+                       n_p, used, cand)
     return kref.extend_step_ref(rows, dom_bits, child_pos, row_idx, depth, n_p, used, cand)
 
 
@@ -56,7 +68,7 @@ def popcount_rows(bits) -> torch.Tensor:
     """K3: per-row popcount ``[n, w] -> [n]`` int32
     (see `repro_torch.kernels.popcount_reduce`)."""
     if _on_card(bits):
-        return _pc.popcount_rows_cuda(bits)
+        return _launch(bits, _pc.popcount_rows_cuda, bits)
     return kref.popcount_rows_ref(bits)
 
 
@@ -64,7 +76,7 @@ def adjacency_any(rows, mask) -> torch.Tensor:
     """K5 for one arc: ``any(rows[t] ∧ mask)`` per row, ``[n_t]`` int32
     (see `repro_torch.kernels.domain_ac`)."""
     if _on_card(rows):
-        return _ac.adjacency_any_cuda(rows, mask)
+        return _launch(rows, _ac.adjacency_any_cuda, rows, mask)
     return kref.adjacency_any_ref(rows, mask)
 
 
@@ -72,7 +84,7 @@ def adjacency_any_pairs(adj_flat, plane, masks) -> torch.Tensor:
     """K5 over the pairs of one sweep: ``any(adj_flat[plane[i], t] ∧
     masks[i])``, ``[n_pairs, n_t]`` int32 (see `repro_torch.kernels.domain_ac`)."""
     if _on_card(masks):
-        return _ac.adjacency_any_pairs_cuda(adj_flat, plane, masks)
+        return _launch(masks, _ac.adjacency_any_pairs_cuda, adj_flat, plane, masks)
     return kref.adjacency_any_pairs_ref(adj_flat, plane, masks)
 
 
@@ -80,7 +92,7 @@ def arc_any_sweep(adj_flat, arc_row, masks) -> torch.Tensor:
     """K4: ``any(adj_flat[arc_row[a], t] ∧ masks[a])``, ``[n_arcs, n_t]``
     int32 (see `repro_torch.kernels.domain_ac`)."""
     if _on_card(masks):
-        return _ac.arc_any_sweep_cuda(adj_flat, arc_row, masks)
+        return _launch(masks, _ac.arc_any_sweep_cuda, adj_flat, arc_row, masks)
     return kref.arc_any_sweep_ref(adj_flat, arc_row, masks)
 
 
@@ -89,8 +101,8 @@ def csr_extend(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p, use
     """K6: the sparse step with the flat ``deg_cap``-wide lead-segment walk;
     returns ``(cand2, child, meta)`` (see `repro_torch.kernels.csr_extend`)."""
     if _on_card(cand):
-        return _ce.csr_extend_cuda(indices, dom_bits, seg_start, seg_len, child_pos, depth,
-                                   n_p, used, cand, deg_cap)
+        return _launch(cand, _ce.csr_extend_cuda, indices, dom_bits, seg_start, seg_len,
+                       child_pos, depth, n_p, used, cand, deg_cap)
     return kref.csr_extend_ref(indices, dom_bits, seg_start, seg_len, child_pos, depth, n_p,
                                used, cand, deg_cap=deg_cap)
 
@@ -100,8 +112,8 @@ def csr_extend_bucketed(indices, dom_bits, seg_start, seg_len, child_pos, depth,
     """K7: the sparse step with the degree-bucketed lead-segment walk; the same
     bits as K6 (see `repro_torch.kernels.csr_extend`)."""
     if _on_card(cand):
-        return _ce.csr_extend_bucketed_cuda(indices, dom_bits, seg_start, seg_len, child_pos,
-                                            depth, n_p, used, cand, deg_cap)
+        return _launch(cand, _ce.csr_extend_bucketed_cuda, indices, dom_bits, seg_start,
+                       seg_len, child_pos, depth, n_p, used, cand, deg_cap)
     return kref.csr_extend_bucketed_ref(indices, dom_bits, seg_start, seg_len, child_pos,
                                         depth, n_p, used, cand, deg_cap=deg_cap)
 
@@ -110,7 +122,8 @@ def csr_arc_sweep(seg_start, seg_len, indices, arc_row, masks, deg_cap: int) -> 
     """K8: the CSR AC sweep, ``[n_arcs, n_t]`` int32
     (see `repro_torch.kernels.domain_ac`)."""
     if _on_card(masks):
-        return _ac.csr_arc_sweep_cuda(seg_start, seg_len, indices, arc_row, masks, deg_cap)
+        return _launch(masks, _ac.csr_arc_sweep_cuda, seg_start, seg_len, indices, arc_row,
+                       masks, deg_cap)
     return kref.csr_arc_sweep_ref(seg_start, seg_len, indices, arc_row, masks, deg_cap=deg_cap)
 
 
@@ -118,7 +131,7 @@ def flash_attention(q, k, v, block_q: int = 128, block_k: int = 128) -> torch.Te
     """K9: causal attention over ``[BH, S, d]`` q and ``[BH, S_kv, d]`` k / v,
     in q's dtype (see `repro_torch.kernels.flash_attention`)."""
     if _on_card(q):
-        return _fa.flash_attention_cuda(q, k, v, block_q=block_q, block_k=block_k)
+        return _launch(q, _fa.flash_attention_cuda, q, k, v, block_q=block_q, block_k=block_k)
     return kref.flash_attention_ref(q, k, v)
 
 

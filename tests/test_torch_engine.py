@@ -218,9 +218,5 @@ def test_sparse_config_values_accepted(backend):
 def test_later_session_features_refused(rng):
     tgt, pat = CASES["dense"](rng)
     g, p = to_port(tgt), to_port(pat)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Enumerator(g, mesh=2, device=CPU)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.run(None, EngineConfig(), mesh=2, device=CPU)
     with pytest.raises(ValueError, match="step_backend"):
         EngineConfig(step_backend="tpu")

@@ -54,7 +54,7 @@ PORT_MODULES = {
     "repro_torch.kernels.ref",
     "repro_torch.serve", "repro_torch.serve.admission", "repro_torch.serve.coalescer",
     "repro_torch.serve.metrics", "repro_torch.serve.service", "repro_torch.serve.stream",
-    "repro_torch.launch", "repro_torch.launch.serve",
+    "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.sge_run",
 }
 
 

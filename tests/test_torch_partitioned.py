@@ -514,8 +514,6 @@ def test_partitioned_backend_needs_its_driver():
 def test_run_partitioned_defaults_to_the_card():
     _, _, _, plan = _plans()
     cfg = EngineConfig(step_backend="partitioned", **KW)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        eng.run_partitioned(plan, cfg, mesh=2, device=CPU)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             eng.run_partitioned(plan, cfg)
