@@ -84,7 +84,8 @@ Phases, each printed as one JSON line:
    requests: ``prefill`` of 4,096-token prompts into a 4,112-position
    cache, then 16 greedy ``decode_step``s.  K9 (``flash_attention``) must
    launch exactly once per layer in the prefill and never in a decode
-   step, and no other kernel at all.  It prints prefill time and tokens/s,
+   step, and no other kernel at all; a second prefill must give
+   bit-identical logits and cache, and peak memory stay under the card's.  It prints prefill time and tokens/s,
    each decode step's time, the generated ids, peak memory and one
    ``torch.profiler`` breakdown each of a prefill and a decode step.
    Checks: K9 against its plain version on every layer's own q/k/v of a
@@ -207,6 +208,35 @@ Phases, each printed as one JSON line:
    "mesh_multi_card", "ran": false, "count": 1}``.  It prints per D the
    launches per step, each query's seconds and the steal round's bytes,
    beside the card's ``nvidia-smi`` line.
+11. LM family — the MoE and sliding-window models, each at full width,
+   with random bf16 weights from a ``torch.Generator`` (drawn in slices,
+   so no fp32 copy of a whole parameter), its weights freed before the
+   next loads: grok-1-314b cut to 4 of 64 layers (8 experts × d_ff 32,768
+   top-2; 2 × 4,096-token prompts, 16 decode steps), kimi-k2-1t-a32b cut to
+   1 of 61 layers (384 experts top-8 plus one shared, d_head 112; 1 ×
+   4,096, 8 steps), nemotron-4-15b (32 layers, squared ReLU) and
+   stablelm-12b (40 layers, d_head 160) at full depth (2 × 4,096, 8 steps
+   each).  Gates per model: K9 once per layer in the prefill, never in a
+   decode step, no other kernel; finite logits; a second prefill gives
+   bit-identical logits and cache; peak memory under the card's; K9 against
+   its plain version on every layer's own q/k/v; every MoE layer's output
+   against the same ``moe_ffn`` in fp32 from the same input (phase 6's
+   bf16 tolerance); for the MoE models decode against prefill at depth 1
+   and 2 with a capacity that drops nothing (kimi's depth 2 repeats its one
+   layer), in bf16 where both runs route the decoded position to the same
+   experts in every layer (printed with the rerouted positions otherwise)
+   and with fp32 activations over the same weights (routing must agree).  It prints each model's ``reduced`` list, prefill seconds and
+   tokens/s, decode ms per step, peak memory, per MoE layer the dropped-pair
+   share and the largest (group, expert) counts against the capacity, one
+   ``torch.profiler`` breakdown each of a prefill and a decode step, and K9
+   timed at d = 112 and 160.  Then ``overrides.apply(stablelm_12b.CFG,
+   ["n_layers=4", "attn_window=4096"])`` runs ``forward`` over 8,192 tokens
+   (timed); gates: with the window widened to the sequence it equals the
+   full causal ``forward`` (bf16 at one layer; each layer from the same
+   input in bf16 and with fp32 activations; 4 layers end to end printed),
+   and layer 0's
+   ``windowed_attention`` equals an fp32 dense masked softmax of its q/k/v,
+   four heads at a time.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -276,6 +306,23 @@ LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 4, 4096, 16
 LM_TOKEN_SEED = 7
 LM_CHECK_PROMPT = 256
 LM_HEAD_CHUNK = 16
+# phase 11, the LM family, random weights from LM_SEED and prompts from
+# LM_TOKEN_SEED as in phase 6: per configuration module, (layers kept or None
+# for all, batch, decode steps); prompts of LMF_PROMPT tokens.  LMF_CFGS maps
+# a module to an LMConfig in place of its CFG (CPU rehearsals).  Then
+# stablelm-12b under the overrides LMF_WINDOW runs forward over one prompt of
+# LMF_WINDOW_SEQ tokens, checked against a dense fp32 softmax
+# LMF_WINDOW_HEADS heads at a time.  LMF_TOL: phase 6's bf16 tolerance.  K9
+# is timed on layer 0's q/k/v at the head widths LMF_K9_TIMED.
+LMF_MODELS = {"grok_1_314b": (4, 2, 16), "kimi_k2_1t_a32b": (1, 1, 8),
+              "nemotron_4_15b": (None, 2, 8), "stablelm_12b": (None, 2, 8)}
+LMF_PROMPT = 4096
+LMF_CFGS = {}
+LMF_WINDOW = ["n_layers=4", "attn_window=4096"]
+LMF_WINDOW_SEQ = 8192
+LMF_WINDOW_HEADS = 4
+LMF_TOL = 2e-2
+LMF_K9_TIMED = (112, 160)
 # phase 7, the dynamic path: benchmarks/bench_incremental.py's regime at the
 # size of PPIS32's largest target (a power-law target of N_T nodes, average
 # degree 4, 4 node labels, one edge label), its pattern rule (a 4-edge
@@ -355,12 +402,13 @@ K9_EDGES = [(4, 1, 1, 64, "random"), (3, 9, 9, 16, "random"), (2, 200, 200, 80, 
             (2, 37, 200, 64, "random"), (2, 1, 1000, 16, "random"),
             (2, 1000, 1000, 128, "equal"), (1, 130, 130, 256, "random")]
 # K9 cases at the bf16 route's boundaries (checked in fp32 too): head widths
-# 24 and 100 (not a multiple of 64; 100 is padded to 104 by the wrapper) and
-# 160 (a 64-column box wholly past the width, zero-filled by TMA); one row
+# 24 and 100 (not a multiple of 64; 100 is padded to 104 by the wrapper), 112
+# (kimi-k2's, through the 128-wide template) and 160 (stablelm-12b's; a
+# 64-column box wholly past the width, zero-filled by TMA); one row
 # past a 128-row query tile (S 4,097 and 129); a KV tile cut short (S_kv 127
 # < S 300); d 256 with S 300 (64-key tiles)
 K9_TC_EDGES = [(2, 300, 300, 24, "random"), (2, 300, 300, 100, "random"),
-               (2, 300, 300, 160, "random"), (1, 4097, 4097, 128, "random"),
+               (2, 300, 300, 112, "random"), (2, 300, 300, 160, "random"), (1, 4097, 4097, 128, "random"),
                (2, 129, 129, 128, "random"), (2, 300, 127, 128, "random"),
                (2, 300, 300, 256, "random")]
 
@@ -2296,10 +2344,10 @@ def decode_vs_prefill_per_layer(params, cfg, toks, n: int, tol: float) -> dict:
     out_err, cache_err = [], []
     for i in range(cfg.n_layers):
         lp = tf.layer_params(params, i)
-        full, full_cache = tf._layer(cfg, h, lp, pos, zero_cache(), 0)
+        full, _, full_cache = tf._layer(cfg, h, lp, pos, zero_cache(), 0)
         inc_cache = zero_cache()
         tf._layer(cfg, h[:, :n], lp, pos[:, :n], inc_cache, 0)
-        step, _ = tf._layer(cfg, h[:, n:], lp, pos[:, n:], inc_cache, n)
+        step, _, _ = tf._layer(cfg, h[:, n:], lp, pos[:, n:], inc_cache, n)
         scale = float(full[:, n].abs().max())
         out_err.append(float((step[:, 0] - full[:, n]).abs().max()) / scale)
         cache_err.append(max(float((a.float() - c.float()).abs().max() / c.float().abs().max())
@@ -2309,6 +2357,76 @@ def decode_vs_prefill_per_layer(params, cfg, toks, n: int, tol: float) -> dict:
                 gate="per_layer", tol=tol, ok=max(out_err + cache_err) <= tol,
                 max_out_err_over_scale=max(out_err), max_cache_err_over_scale=max(cache_err),
                 out_err_over_scale=out_err)
+
+
+def serve_lm(params, cfg, toks, n_dec: int, device) -> dict:
+    """Serve ``toks`` [B, S]: a warm-up prefill and decode step, then a
+    prefill timed with the kernel launch counts set to 0 just before and
+    read just after, a second prefill that must give bit-identical logits
+    and cache, ``n_dec`` greedy decode steps (timed, counted) and one
+    ``torch.profiler`` breakdown each of a prefill and a decode step.
+    Gates: finite fp32 logits of shape [B, V]; K9 once per layer in the
+    prefill and no other kernel, none in a decode step; peak memory (since
+    the caller's ``reset_peak_memory_stats``) under the card's.  Returns the
+    measurements."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    b, s = toks.shape
+    max_len = s + n_dec
+    logits, cache = tf.prefill(params, cfg, toks, max_len=max_len)
+    tf.decode_step(params, cfg, cache, logits.argmax(-1)[:, None], s)
+    del logits, cache
+
+    torch.cuda.synchronize(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = tf.prefill(params, cfg, toks, max_len=max_len)
+    torch.cuda.synchronize(device)
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = ops.launch_counts()
+    again, cache2 = tf.prefill(params, cfg, toks, max_len=max_len)
+    identical = bool(torch.equal(logits, again)) and all(
+        torch.equal(x, y) for x, y in zip(cache, cache2))
+    del again, cache2
+    ops.reset_launch_counts()
+    ids = [logits.argmax(-1)]
+    step_ms = []
+    finite = bool(logits.isfinite().all())
+    for i in range(n_dec):
+        t0 = time.perf_counter()
+        logits, cache = tf.decode_step(params, cfg, cache, ids[-1][:, None], s + i)
+        ids.append(logits.argmax(-1))
+        torch.cuda.synchronize(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite = finite and bool(logits.isfinite().all())
+    decode_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    if tuple(logits.shape) != (b, cfg.vocab_size) or logits.dtype != torch.float32 or not finite:
+        raise AssertionError(f"{cfg.name} logits: {tuple(logits.shape)} {logits.dtype} "
+                             f"finite={finite}")
+    want_prefill = dict.fromkeys(prefill_counts, 0)
+    want_prefill["flash_attention"] = cfg.n_layers
+    if prefill_counts != want_prefill or any(decode_counts.values()):
+        raise AssertionError(f"{cfg.name} launches: prefill {prefill_counts}, "
+                             f"{n_dec} decode steps {decode_counts}")
+    if not identical:
+        raise AssertionError(f"{cfg.name}: a repeated prefill gave other logits or cache")
+    if peak >= total:
+        raise AssertionError(f"{cfg.name}: peak {peak} bytes >= the card's {total}")
+    return dict(prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
+                decode_ms_per_step=step_ms, decode_ms_median=statistics.median(step_ms),
+                decode_tokens_per_s=b * 1e3 / statistics.median(step_ms),
+                generated=torch.stack(ids, dim=1).tolist(), peak_memory_gb=peak / 1e9,
+                card_memory_gb=total / 1e9, repeat_prefill_identical=identical,
+                prefill_launches=prefill_counts, decode_launches=decode_counts,
+                prefill_profile=profile_call(lambda: tf.prefill(params, cfg, toks,
+                                                                max_len=max_len)),
+                decode_profile=profile_call(lambda: tf.decode_step(
+                    params, cfg, cache, ids[-1][:, None], max_len - 1)))
 
 
 def run_lm_path(device):
@@ -2352,49 +2470,9 @@ def run_lm_path(device):
     toks = torch.from_numpy(graphgen.lm_batch(b, s, cfg.vocab_size, seed=LM_TOKEN_SEED)
                             ["tokens"]).to(device)
 
-    # warm-up: first use of every op at these shapes
-    logits, cache = tf.prefill(params, cfg, toks, max_len=max_len)
-    tf.decode_step(params, cfg, cache, logits.argmax(-1)[:, None], s)
-    del logits, cache
-
-    # the served requests: launch counts set to 0 just before, read just after
-    torch.cuda.synchronize(device)
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    logits, cache = tf.prefill(params, cfg, toks, max_len=max_len)
-    torch.cuda.synchronize(device)
-    prefill_s = time.perf_counter() - t0
-    prefill_counts = ops.launch_counts()
-    ops.reset_launch_counts()
-    ids = [logits.argmax(-1)]
-    step_ms = []
-    finite = bool(logits.isfinite().all())
-    for i in range(n_dec):
-        t0 = time.perf_counter()
-        logits, cache = tf.decode_step(params, cfg, cache, ids[-1][:, None], s + i)
-        ids.append(logits.argmax(-1))
-        torch.cuda.synchronize(device)
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        finite = finite and bool(logits.isfinite().all())
-    decode_counts = ops.launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
-    if tuple(logits.shape) != (b, cfg.vocab_size) or logits.dtype != torch.float32 or not finite:
-        raise AssertionError(f"LM logits: {tuple(logits.shape)} {logits.dtype} finite={finite}")
-    want_prefill = dict.fromkeys(prefill_counts, 0)
-    want_prefill["flash_attention"] = cfg.n_layers
-    if prefill_counts != want_prefill or any(decode_counts.values()):
-        raise AssertionError(f"LM launches: prefill {prefill_counts}, "
-                             f"{n_dec} decode steps {decode_counts}")
-    emit(dict(phase="lm_path", prefill_s=prefill_s, prefill_tokens_per_s=b * s / prefill_s,
-              decode_ms_per_step=step_ms, decode_ms_median=statistics.median(step_ms),
-              decode_tokens_per_s=b * 1e3 / statistics.median(step_ms),
-              generated=torch.stack(ids, dim=1).tolist(), peak_memory_gb=peak_gb,
-              prefill_launches=prefill_counts, decode_launches=decode_counts,
-              prefill_profile=profile_call(lambda: tf.prefill(params, cfg, toks,
-                                                              max_len=max_len)),
-              decode_profile=profile_call(lambda: tf.decode_step(
-                  params, cfg, cache, ids[-1][:, None], max_len - 1))))
-    del logits, cache
+    served = serve_lm(params, cfg, toks, n_dec, device)
+    emit(dict(phase="lm_path", **served))
+    prefill_counts, decode_counts = served["prefill_launches"], served["decode_launches"]
 
     # K9 against its plain version on every layer's own q/k/v (a prefill of
     # the same requests with each K9 call checked), then timed on layer 0's
@@ -3917,6 +3995,365 @@ def run_mesh_path(device, smi: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the LM family (MoE and sliding-window attention)
+# ---------------------------------------------------------------------------
+
+def _depth_tied(params, cfg, n: int):
+    """:func:`_depth`, or, for a model of one loaded layer, ``n`` layers that
+    all are that layer (views: no copy of its weights)."""
+    import dataclasses
+
+    if n <= cfg.n_layers:
+        return _depth(params, cfg, n)
+    if cfg.n_layers != 1:
+        raise ValueError(f"cannot tie {cfg.n_layers} layers into {n}")
+    return (dict(params, layers={k: w.expand(n, *w.shape[1:])
+                                 for k, w in params["layers"].items()}),
+            dataclasses.replace(cfg, n_layers=n))
+
+
+def _fp32_activations(params):
+    """A MoE model's parameters for an fp32 run over the same values: every
+    weight but the routed experts' cast to fp32 (``moe_ffn`` casts each
+    expert's weights to the activation dtype as it uses them)."""
+    return dict(params, layers={k: w if k.startswith("we_") else w.float()
+                                for k, w in params["layers"].items()})
+
+
+def moe_decode_vs_prefill(params, cfg, toks, n: int, tol: float, gate="elementwise") -> dict:
+    """:func:`decode_vs_prefill` for a MoE model, with the experts that each
+    layer routes the decoded position to in both runs.  Routing is a
+    discontinuous function of the layer's input: where rounding moves the
+    router's top-k set, the two runs compute different functions, so the
+    gate holds only where every layer's sets agree (``routing_equal``)."""
+    from repro_torch.models import moe as moe_mod
+
+    sets = []
+    inner = moe_mod.moe_ffn
+
+    def recording(x, router_w, *w, **kw):
+        sets.append(moe_mod.route(x, router_w, w[-1])[2].sort(dim=1).values)
+        return inner(x, router_w, *w, **kw)
+
+    moe_mod.moe_ffn = recording
+    try:
+        res = decode_vs_prefill(params, cfg, toks, n, tol, gate=gate)
+    finally:
+        moe_mod.moe_ffn = inner
+    layers, b = cfg.n_layers, int(toks.shape[0])
+    full, step = sets[:layers], sets[2 * layers:]
+    differ = [int((f.view(b, n + 1, -1)[:, n] != st).any(dim=1).sum())
+              for f, st in zip(full, step)]
+    res.update(routing_equal=not any(differ), positions_rerouted_per_layer=differ)
+    if not res["routing_equal"]:
+        res["ok"] = None  # measured, not gated: the two runs routed apart
+    return res
+
+
+def moe_layer_case(out, ref, disp, t: int, k: int, tol: float) -> dict:
+    """A MoE layer's bf16 output against the same function in fp32, and its
+    dispatch: pairs dropped and the largest (group, expert) counts against
+    the capacity ``C``."""
+    d = (out.float() - ref).abs()
+    routed = disp.routed
+    return dict(moe_mismatches=int((d > tol + tol * ref.abs()).sum()), moe_err=float(d.max()),
+                rel_l2=float((out.float() - ref).norm() / ref.norm()), tol=tol,
+                tokens=t, pairs=t * k, kept=int(disp.pairs.numel()),
+                dropped_share=1.0 - disp.pairs.numel() / (t * k), groups=int(routed.shape[0]),
+                capacity=disp.capacity, max_routed=int(routed.max()),
+                max_kept=int(routed.clamp(max=disp.capacity).max()),
+                experts_with_rows=int((disp.counts > 0).sum()))
+
+
+def serve_family_model(device, smi: str, name: str) -> tuple:
+    """One model of phase 11 serves ``LMF_MODELS[name]`` (layers kept, batch,
+    decode steps): a prefill of ``LMF_PROMPT``-token prompts timed with the
+    launch counts, a second prefill that must give bit-identical logits and
+    cache, greedy decode steps, profiles of a prefill and a decode step; then
+    a checked prefill (every K9 call against its plain version, every MoE
+    layer against itself in fp32 with its dispatch printed) and, for MoE,
+    decode against prefill at depth 1 and 2 with a capacity that drops
+    nothing.  Returns (launch counts, check cases, K9 timing on layer 0's
+    q/k/v or None)."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import lm_common
+    from repro_torch.data import graphgen
+    from repro_torch.kernels import ops
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as tf
+
+    full = LMF_CFGS.get(name) or importlib.import_module(f"repro_torch.configs.{name}").CFG
+    depth, b, n_dec = LMF_MODELS[name]
+    cfg = dataclasses.replace(full, n_layers=depth) if depth else full
+    s = LMF_PROMPT
+    max_len = s + n_dec
+    reduced = ([f"layers {full.n_layers} -> {cfg.n_layers} (full width)"]
+               if cfg.n_layers < full.n_layers else []) + [
+        f"prefill batch {lm_common.PREFILL_SHAPE['batch']} -> {b}, "
+        f"seq {lm_common.PREFILL_SHAPE['seq']} -> {s} (PREFILL_SHAPE)",
+        f"decode batch {lm_common.DECODE_SHAPE['batch']} -> {b}, "
+        f"cache {lm_common.DECODE_SHAPE['seq']} -> {max_len} (DECODE_SHAPE)",
+        f"random weights (seed {LM_SEED}), random prompts (lm_batch seed {LM_TOKEN_SEED})"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    held_gb = torch.cuda.memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=LM_SEED, device=device)
+    torch.cuda.synchronize(device)
+    weights = [params["embed"], params["final_norm"], params["lm_head"],
+               *params["layers"].values()]
+    emit(dict(phase="lm_family_setup", model=cfg.name, n_layers=cfg.n_layers,
+              d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+              head_dim=cfg.head_dim, d_ff=cfg.d_ff, activation=cfg.activation,
+              moe=dataclasses.asdict(cfg.moe) if cfg.moe else None, vocab=cfg.vocab_size,
+              dtype=str(cfg.dtype), params=cfg.param_count(),
+              active_params=cfg.active_param_count(), n_active=lm_common.n_active(cfg),
+              weights_gb=sum(w.numel() * w.element_size() for w in weights) / 1e9,
+              embeddings_gb=sum(params[k].numel() * params[k].element_size()
+                                for k in ("embed", "lm_head")) / 1e9,
+              held_before_gb=held_gb, init_s=time.perf_counter() - t0,
+              init_peak_gb=torch.cuda.max_memory_allocated(device) / 1e9, batch=b, prompt=s,
+              decode_steps=n_dec, max_len=max_len, reduced=reduced, nvidia_smi=smi))
+    del weights
+    toks = torch.from_numpy(graphgen.lm_batch(b, s, cfg.vocab_size, seed=LM_TOKEN_SEED)
+                            ["tokens"]).to(device)
+
+    served = serve_lm(params, cfg, toks, n_dec, device)
+    emit(dict(phase="lm_family_path", model=cfg.name, **served, nvidia_smi=smi))
+    prefill_counts, decode_counts = served["prefill_launches"], served["decode_launches"]
+
+    # a checked prefill: K9 on every layer's own q/k/v, every MoE layer in fp32
+    k9_layers, moe_layers, first = [], [], {}
+    flash, moe_ffn = ops.flash_attention, moe_mod.moe_ffn
+
+    def checked_flash(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        k9_layers.append(k9_case(out, q, k, v, LMF_TOL, chunk=LM_HEAD_CHUNK))
+        first.setdefault("qkv", (q, k, v))
+        return out
+
+    def checked_moe(x, router_w, w_gate, w_up, w_down, mcfg):
+        out, aux = moe_ffn(x, router_w, w_gate, w_up, w_down, mcfg)
+        ref, _ = moe_ffn(x.float(), router_w, w_gate, w_up, w_down, mcfg)
+        disp = moe_mod.dispatch(moe_mod.route(x, router_w, mcfg)[2], mcfg)
+        moe_layers.append(moe_layer_case(out, ref, disp, x.shape[0], mcfg.top_k, LMF_TOL))
+        return out, aux
+
+    ops.flash_attention, moe_mod.moe_ffn = checked_flash, checked_moe
+    try:
+        tf.prefill(params, cfg, toks, max_len=max_len)
+    finally:
+        ops.flash_attention, moe_mod.moe_ffn = flash, moe_ffn
+    timing = k9_timing(*first.pop("qkv")) if cfg.head_dim in LMF_K9_TIMED else None
+    cases = [dict(c, layer=i, kind="lm_family_layer", model=cfg.name)
+             for i, c in enumerate(k9_layers)]
+    # decode against prefill with a capacity that drops nothing, at depth 1
+    # and 2: bf16 (gated where both runs route alike), then fp32 activations
+    # over the same weight values (gated: rounding then moves no router)
+    dvp = []
+    if cfg.moe:
+        m = cfg.moe
+        drop_free = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.n_experts / m.top_k))
+        for dtype, p in ((cfg.dtype, params), (torch.float32, _fp32_activations(params))):
+            c = dataclasses.replace(drop_free, dtype=dtype)
+            for depth, gate in ((1, "elementwise"), (2, "rel_l2" if dtype != torch.float32
+                                                     else "elementwise")):
+                res = moe_decode_vs_prefill(*_depth_tied(p, c, depth), toks, LM_CHECK_PROMPT,
+                                            LMF_TOL, gate=gate)
+                if dtype == torch.float32 and not res["routing_equal"]:
+                    res["ok"] = False
+                dvp.append(dict(res, capacity_factor=m.n_experts / m.top_k,
+                                tied_layers=depth > cfg.n_layers))
+            del p
+    emit(dict(phase="lm_family_checks", model=cfg.name, nvidia_smi=smi,
+              k9_per_layer=[{k: c[k] for k in ("flash_attention_err", "rel_l2", "worst_over_tol")}
+                            for c in cases],
+              moe_per_layer=moe_layers, decode_vs_prefill=dvp, k9_timing=timing))
+    del params, toks, first
+    torch.cuda.empty_cache()
+    bad = [c for c in cases if c["flash_attention_mismatches"]]
+    if bad:
+        raise AssertionError(f"{cfg.name}: K9 disagrees with its plain version: {bad}")
+    if len(k9_layers) != cfg.n_layers or len(moe_layers) != (cfg.n_layers if cfg.moe else 0):
+        raise AssertionError(f"{cfg.name}: checked {len(k9_layers)} K9 calls and "
+                             f"{len(moe_layers)} MoE layers of {cfg.n_layers}")
+    bad = [c for c in moe_layers if c["moe_mismatches"]]
+    if bad:
+        raise AssertionError(f"{cfg.name}: a MoE layer disagrees with itself in fp32: {bad}")
+    bad = [c for c in dvp if c["ok"] is False]
+    if bad:
+        raise AssertionError(f"{cfg.name}: decode disagrees with prefill: {bad}")
+    return dict(prefill=prefill_counts, decode=decode_counts), cases, timing
+
+
+def windowed_reference(q, k, v, window: int, heads: int):
+    """Sliding-window attention as an fp32 dense masked softmax, ``heads``
+    query heads at a time: query ``i`` sees keys ``i - window`` to ``i``."""
+    import torch
+
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    pos = torch.arange(s, device=q.device)
+    rel = pos[:, None] - pos[None, :]
+    mask = (rel >= 0) & (rel <= window)
+    out = torch.empty(b, s, h, dh, dtype=torch.float32, device=q.device)
+    for h0 in range(0, h, heads):
+        idx = torch.arange(h0, min(h0 + heads, h), device=q.device)
+        qh = q[:, :, idx].float()
+        kh, vh = k[:, :, idx // g].float(), v[:, :, idx // g].float()
+        sc = torch.einsum("bqhd,bkhd->bhqk", qh, kh) / dh ** 0.5
+        p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
+        out[:, :, idx] = torch.einsum("bhqk,bkhd->bqhd", p, vh)
+    return out
+
+
+def run_window(device, smi: str) -> dict:
+    """Phase 11's sliding window: ``overrides.apply(stablelm_12b.CFG,
+    LMF_WINDOW)`` runs ``forward`` over one prompt of ``LMF_WINDOW_SEQ``
+    tokens (timed).  Gates: with the window widened to the sequence,
+    ``forward`` equals the full causal ``forward`` (bf16 at one layer,
+    ``LMF_TOL`` in relative L2; each layer from the same input, in bf16
+    within ``LMF_TOL`` and with fp32 activations within 1e-4 of the layer's
+    largest output; both at full depth end to end are printed);
+    layer 0's ``windowed_attention`` equals an fp32 dense masked softmax of
+    the same q/k/v (elementwise ``LMF_TOL``); no kernel launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import overrides, stablelm_12b
+    from repro_torch.data import graphgen
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as tf
+
+    base = LMF_CFGS.get("stablelm_12b") or stablelm_12b.CFG
+    cfg = overrides.apply(base, LMF_WINDOW)
+    s = LMF_WINDOW_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = tf.init_params(cfg, seed=LM_SEED, device=device)
+    toks = torch.from_numpy(graphgen.lm_batch(1, s, cfg.vocab_size, seed=LM_TOKEN_SEED)
+                            ["tokens"]).to(device)
+    captured = {}
+    windowed = tf.windowed_attention
+
+    def capture(q, k, v, **kw):
+        out = windowed(q, k, v, **kw)
+        captured.setdefault("layer0", (q, k, v, out))
+        return out
+
+    tf.windowed_attention = capture
+    try:
+        tf.forward(params, cfg, toks)  # warm-up
+        torch.cuda.synchronize(device)
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        hidden, _ = tf.forward(params, cfg, toks)
+        torch.cuda.synchronize(device)
+        window_s = time.perf_counter() - t0
+        counts = ops.launch_counts()
+    finally:
+        tf.windowed_attention = windowed
+    finite = bool(hidden.isfinite().all())
+    del hidden
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    tf.forward(params, dataclasses.replace(cfg, attn_window=0), toks)
+    torch.cuda.synchronize(device)
+    causal_s = time.perf_counter() - t0
+
+    def widened_vs_causal(p, c, gate):
+        """``forward`` with the window widened to S against the full causal
+        ``forward`` (``windowed_attention`` against ``blockwise_attention``)."""
+        widened, _ = tf.forward(p, dataclasses.replace(c, attn_window=s), toks)
+        causal, _ = tf.forward(p, dataclasses.replace(c, attn_window=0), toks)
+        d = (widened.float() - causal.float()).abs()
+        res = dict(layers=c.n_layers, dtype=str(c.dtype), gate=gate, tol=LMF_TOL,
+                   rel_l2=float(d.norm() / causal.float().norm()), max_abs_err=float(d.max()),
+                   mismatches=int((d > LMF_TOL + LMF_TOL * causal.float().abs()).sum()),
+                   finite=bool(widened.isfinite().all() and causal.isfinite().all()))
+        res["ok"] = res["finite"] and (gate is None or res["rel_l2"] <= LMF_TOL)
+        return res
+
+    def widened_per_layer(p, c, tol):
+        """Each layer run once windowed (window widened to S) and once
+        causal from the same input, the causal output feeding the next: the
+        largest difference over the layer's largest output must stay within
+        ``tol``, so a difference cannot grow through later layers."""
+        h = tf._embed(p, c, toks)
+        pos = torch.arange(s, device=h.device).expand(1, s)
+        errs = []
+        for i in range(c.n_layers):
+            lp = tf.layer_params(p, i)
+            win, _, _ = tf._layer(dataclasses.replace(c, attn_window=s), h, lp, pos)
+            h, _, _ = tf._layer(dataclasses.replace(c, attn_window=0), h, lp, pos)
+            errs.append(float((win.float() - h.float()).abs().max() / h.float().abs().max()))
+        return dict(layers=c.n_layers, dtype=str(c.dtype), gate="per_layer", tol=tol,
+                    err_over_scale=errs, ok=max(errs) <= tol)
+
+    # bf16 and fp32 activations over the same weight values: one layer of
+    # forward and each layer from the same input gated (phase 6's per-layer
+    # tolerances), forward at full depth measured: at random init attention
+    # is nearly one-hot (scores of std ~160), so rounding that moves a
+    # near-tie grows layer over layer, as in phase 6's deeper decode runs
+    widen = [widened_vs_causal(*_depth(params, cfg, 1), "rel_l2"),
+             widened_vs_causal(params, cfg, None), widened_per_layer(params, cfg, LMF_TOL)]
+    params = dict(params, layers={k: w.float() for k, w in params["layers"].items()})
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    widen += [widened_vs_causal(params, cfg32, None), widened_per_layer(params, cfg32, 1e-4)]
+    widen[1]["finite"] = widen[1]["finite"] and finite
+    q, k, v, out = captured.pop("layer0")
+    ref = windowed_reference(q, k, v, cfg.attn_window, LMF_WINDOW_HEADS)
+    d = (out.float() - ref).abs()
+    layer0 = dict(mismatches=int((d > LMF_TOL + LMF_TOL * ref.abs()).sum()),
+                  max_abs_err=float(d.max()), rel_l2=float((out.float() - ref).norm() / ref.norm()),
+                  tol=LMF_TOL, shape=list(q.shape), kv_heads=int(k.shape[2]))
+    res = dict(phase="lm_family_window", model=cfg.name, overrides=LMF_WINDOW,
+               n_layers=cfg.n_layers, attn_window=cfg.attn_window, seq=s,
+               reduced=[f"layers {base.n_layers} -> {cfg.n_layers} (repro's overrides example)",
+                        f"one prompt of {s} tokens", f"random weights (seed {LM_SEED})"],
+               forward_s=window_s, forward_tokens_per_s=s / window_s, causal_forward_s=causal_s,
+               launches=counts, widened_vs_causal=widen, layer0_vs_dense_fp32=layer0,
+               peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9, nvidia_smi=smi)
+    emit(res)
+    del params, q, k, v, out, ref
+    torch.cuda.empty_cache()
+    if any(c["ok"] is False for c in widen):
+        raise AssertionError(f"windowed forward with window >= S != causal forward: {widen}")
+    if layer0["mismatches"]:
+        raise AssertionError(f"windowed_attention != the dense masked softmax: {layer0}")
+    if any(counts.values()):
+        raise AssertionError(f"the windowed forward launched kernels: {counts}")
+    return res
+
+
+def run_lm_family_path(device, smi: str) -> tuple:
+    """Phase 11: each model of ``LMF_MODELS`` served in turn (its weights
+    freed before the next loads), then the sliding window.  Returns the K9
+    launches of the served prefills, the check cases and the K9 timings at
+    the head widths of ``LMF_K9_TIMED``."""
+    t_phase = time.perf_counter()
+    launches, cases, timing = 0, [], {}
+    for name in LMF_MODELS:
+        t0 = time.perf_counter()
+        counts, model_cases, t = serve_family_model(device, smi, name)
+        launches += counts["prefill"]["flash_attention"] + counts["decode"]["flash_attention"]
+        cases += model_cases
+        if t is not None:
+            timing[f"head_dim_{t['shape'][-1]}"] = t
+        emit(dict(phase="lm_family_model_done", model=name, seconds=time.perf_counter() - t0))
+    run_window(device, smi)
+    emit(dict(phase="lm_family_done", k9_launches=launches, nvidia_smi=smi,
+              lm_family_path_s=time.perf_counter() - t_phase))
+    return launches, cases, timing
+
+
 def main() -> int:
     try:
         import torch
@@ -4009,6 +4446,13 @@ def main() -> int:
 
     mesh = run_mesh_path(device, smi)
 
+    lmf_launches, lmf_cases, lmf_timing = run_lm_family_path(device, smi)
+    checks += lmf_cases
+    for key, t in lmf_timing.items():
+        timing["flash_attention"].update({f"{key}_{k}": t[k] for k in (
+            "ms", "plain_ms", "library_ms", "fp32_ms", "ops_bound_ms", "bytes", "ops")})
+        timing["flash_attention"][f"{key}_shape"] = t["shape"]
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
@@ -4060,7 +4504,7 @@ def main() -> int:
         "flash_attention": dict(source="src/repro_torch/csrc/flash_attention.cu",
                                 replaces="src/repro/kernels/flash_attention.py:67",
                                 launches=lm_launches["prefill"]["flash_attention"]
-                                + lm_launches["decode"]["flash_attention"]),
+                                + lm_launches["decode"]["flash_attention"] + lmf_launches),
     }
 
     def own(name, key, suffix):  # K5's cases include its batched form's
@@ -4075,7 +4519,7 @@ def main() -> int:
                  if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_",
                                   "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes",
                                   "cold_", "real_step_", "valid_", "lanes_", "table_",
-                                  "kernel_trace", "partitioned_step_"))}
+                                  "kernel_trace", "partitioned_step_", "head_dim_"))}
         if "header" in m:
             extra["header"] = m["header"]
         kernels.append(dict(

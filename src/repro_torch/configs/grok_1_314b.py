@@ -1,0 +1,36 @@
+"""grok-1-314b — 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072,
+MoE 8 experts top-2.  [hf:xai-org/grok-1; unverified]
+
+The numbers of ``repro.configs.grok_1_314b`` (``CFG`` and the CPU-sized
+``SMOKE``), without its training-only ``loss_chunk``.
+"""
+
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import LMConfig
+
+CFG = LMConfig(
+    name="grok-1-314b",
+    n_layers=64,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=8,
+    d_ff=32768,
+    vocab_size=131072,
+    activation="swiglu",
+    moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32768),
+    max_seq_len=32768,
+)
+
+SMOKE = LMConfig(
+    name="grok-1-314b-smoke",
+    n_layers=2,
+    d_model=64,
+    n_heads=4,
+    n_kv_heads=2,
+    d_ff=128,
+    vocab_size=256,
+    activation="swiglu",
+    moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=128, capacity_round=8),
+    max_seq_len=64,
+    kv_block=8,
+)

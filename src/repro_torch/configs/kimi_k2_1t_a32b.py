@@ -1,0 +1,37 @@
+"""kimi-k2-1t-a32b — 61L d_model=7168 64H (GQA kv=8) d_ff=2048 (per expert)
+vocab=163840, MoE 384 experts top-8 (+1 shared).  [arXiv:2501.kimi2; unverified]
+
+The numbers of ``repro.configs.kimi_k2_1t_a32b`` (``CFG`` and the CPU-sized
+``SMOKE``), without its training-only ``loss_chunk``.
+"""
+
+from repro_torch.models.moe import MoEConfig
+from repro_torch.models.transformer import LMConfig
+
+CFG = LMConfig(
+    name="kimi-k2-1t-a32b",
+    n_layers=61,
+    d_model=7168,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=2048,
+    vocab_size=163840,
+    activation="swiglu",
+    moe=MoEConfig(n_experts=384, top_k=8, d_ff_expert=2048, n_shared_experts=1),
+    max_seq_len=32768,
+)
+
+SMOKE = LMConfig(
+    name="kimi-k2-smoke",
+    n_layers=2,
+    d_model=64,
+    n_heads=8,
+    n_kv_heads=2,
+    d_ff=64,
+    vocab_size=256,
+    activation="swiglu",
+    moe=MoEConfig(n_experts=8, top_k=4, d_ff_expert=64, n_shared_experts=1,
+                  capacity_round=8),
+    max_seq_len=64,
+    kv_block=8,
+)

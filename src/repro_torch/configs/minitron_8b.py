@@ -3,9 +3,10 @@
 
 The numbers of ``repro.configs.minitron_8b`` (``CFG`` and the CPU-sized
 ``SMOKE``), without its training-only ``loss_chunk``, and the serving
-shapes of ``repro.configs.lm_common`` beside them.
+shapes of `repro_torch.configs.lm_common` beside them.
 """
 
+from repro_torch.configs.lm_common import DECODE_SHAPE, PREFILL_SHAPE  # noqa: F401
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -32,7 +33,3 @@ SMOKE = LMConfig(
     max_seq_len=64,
     kv_block=8,
 )
-
-# the LM cells' serving shapes (prefill_32k, decode_32k)
-PREFILL_SHAPE = dict(seq=32768, batch=32)
-DECODE_SHAPE = dict(seq=32768, batch=128)

@@ -1,13 +1,15 @@
-"""Models of the port (a port of ``repro.models``, dense LM serving only).
+"""Models of the port (a port of ``repro.models``, LM serving only).
 
   common      — rms_norm, activations, the matmul in the activation dtype,
                 the parameter initialiser
   attention   — RoPE, grouped decode attention over a KV cache, blockwise
-                (online-softmax) attention
-  transformer — the decoder-only LM: LMConfig, parameters, prefill (every
-                layer's attention through K9 ``flash_attention``) and
-                decode_step
+                (online-softmax) attention, sliding-window attention
+  moe         — top-k routing with group-local sort dispatch over the kept
+                pairs, the expert FFN, the load-balance loss
+  transformer — the decoder-only LM, dense or MoE: LMConfig, parameters,
+                forward, prefill (every layer's attention through K9
+                ``flash_attention``) and decode_step
 
-MoE layers, windowed attention, training, and the GNN and recsys models are
-not ported yet (ROADMAP Queue 1 item 14).
+Training and the GNN and recsys models are not ported yet (ROADMAP Queue 1
+item 14).
 """

@@ -8,13 +8,15 @@
   query; the LM prefill (`repro_torch.models.transformer`) runs the same
   function through K9 ``flash_attention`` instead, and the tests hold the
   two against each other;
+- :func:`windowed_attention` — causal sliding-window attention in query
+  chunks, each over its ``window + q_chunk`` neighbourhood of a left-padded
+  K/V, plain PyTorch as in ``repro`` (which has no Pallas kernel for it);
 - :func:`apply_rope` — rotary embedding in fp32.
 
 ``repro``'s sharding hints (``constraint``) have no meaning on one card and
 are dropped; its ``jax.checkpoint`` around each block step (recompute in
 the backward pass) has no counterpart, since the port serves and does not
-train.  Sliding-window attention is not ported yet
-(:func:`windowed_attention` raises).
+train.
 """
 
 from __future__ import annotations
@@ -58,10 +60,46 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset
     return out.reshape(b, s, h, dh).to(q.dtype)
 
 
-def windowed_attention(q, k, v, *, window: int, q_chunk: int = 1024):
-    """Sliding-window attention (``LMConfig.attn_window > 0``): not ported."""
-    raise NotImplementedError(
-        "windowed_attention (attn_window > 0) is not ported yet: ROADMAP Queue 1 item 14")
+def windowed_attention(
+    q: torch.Tensor,  # [B, S, H, dh]  (self-attention over the same sequence)
+    k: torch.Tensor,  # [B, S, KH, dh]
+    v: torch.Tensor,
+    *,
+    window: int,
+    q_chunk: int = 1024,
+) -> torch.Tensor:
+    """Causal sliding-window attention, O(S · window): query ``i`` sees the
+    keys at positions ``i - window`` to ``i``.  Query chunks of ``q_chunk``
+    (which must divide S) each attend their ``window + q_chunk``
+    neighbourhood of K/V left-padded with ``min(window, S)`` zero rows,
+    under the three-part mask (causal, inside the window, not padding);
+    softmax in fp32.  Returns [B, S, H, dh] in q's dtype."""
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    cq = min(q_chunk, s)
+    if s % cq:
+        raise ValueError(f"q_chunk {cq} does not divide the sequence length {s}")
+    win = min(window, s)
+    span = win + cq  # kv neighbourhood per query chunk
+    scale = 1.0 / dh ** 0.5
+    kp = torch.nn.functional.pad(k, (0, 0, 0, 0, win, 0))  # left-pad history
+    vp = torch.nn.functional.pad(v, (0, 0, 0, 0, win, 0))
+    out = torch.empty_like(q)
+    for start in range(0, s, cq):
+        q_c = q[:, start:start + cq].float()
+        sc = torch.einsum("bqhd,bkhd->bhqk", q_c, kp[:, start:start + span].float()) * scale
+        q_pos = start + torch.arange(cq, device=q.device)
+        k_pos = start - win + torch.arange(span, device=q.device)  # global kv positions
+        rel = q_pos[:, None] - k_pos[None, :]
+        mask = (rel >= 0) & (rel < win + 1) & (k_pos[None, :] >= 0)
+        sc = torch.where(mask, sc, torch.tensor(NEG_INF, device=q.device))
+        p = torch.softmax(sc, dim=-1)
+        o = torch.einsum("bhqk,bkhd->bqhd", p, vp[:, start:start + span].float())
+        out[:, start:start + cq] = o.to(q.dtype)
+    return out
 
 
 def blockwise_attention(

@@ -44,16 +44,27 @@ def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.to(x.dtype))
 
 
+INIT_CHUNK = 1 << 26  # elements drawn in fp32 at a time: 256 MB
+
+
 def init_param(shape: Sequence[int], init: str, dtype: torch.dtype,
                generator: torch.Generator, device: torch.device,
                scale: Optional[float] = None) -> torch.Tensor:
     """One parameter: ``ones``, or (``normal``) a standard normal drawn in
     fp32, times ``scale`` (default ``1/√fan_in``, fan-in the second-to-last
-    axis), then cast to ``dtype``."""
+    axis), then cast to ``dtype``.  The draw fills the parameter in slices of
+    :data:`INIT_CHUNK` elements in storage order, so a bf16 parameter never
+    has a whole fp32 copy beside it (grok-1's expert weights would need
+    25.8 GB of it at 4 layers)."""
     shape = tuple(shape)
     if init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
     fan_in = shape[-2] if len(shape) >= 2 else max(1, shape[-1])
-    x = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
-    x.mul_(scale if scale is not None else fan_in ** -0.5)
-    return x.to(dtype)
+    mult = scale if scale is not None else fan_in ** -0.5
+    out = torch.empty(shape, dtype=dtype, device=device)
+    flat = out.view(-1)
+    for start in range(0, flat.numel(), INIT_CHUNK):
+        n = min(INIT_CHUNK, flat.numel() - start)
+        x = torch.randn(n, generator=generator, dtype=torch.float32, device=device)
+        flat[start:start + n] = x.mul_(mult)
+    return out

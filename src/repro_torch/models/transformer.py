@@ -1,5 +1,6 @@
-"""Decoder-only LM transformer, dense: GQA + RoPE + a dense FFN (a port of
-the serving half of ``repro.models.transformer``).
+"""Decoder-only LM transformer: GQA + RoPE + a dense or MoE FFN (a port of
+the serving half of ``repro.models.transformer``), for all five LM
+configurations of `repro_torch.configs`.
 
 Entry points:
   * ``init_params(cfg, seed, device)``                → parameter dict
@@ -11,12 +12,19 @@ Entry points:
 
 Parameters are a dict in ``repro``'s tree layout: ``embed`` [V, d],
 ``layers`` (``g1``, ``g2``, ``wq`` [L, d, H, dh], ``wk`` / ``wv`` [L, d, KH,
-dh], ``wo`` [L, H, dh, d], ``w_up``, ``w_down`` and, for ``swiglu``,
-``w_gate``; the layer axis first), ``final_norm`` and ``lm_head`` [d, V].
+dh], ``wo`` [L, H, dh, d]; dense: ``w_up``, ``w_down`` and, for ``swiglu``,
+``w_gate``; MoE: ``router`` [L, d, E] in fp32 whatever ``cfg.dtype`` is,
+``we_gate`` / ``we_up`` [L, E, d, F], ``we_down`` [L, E, F, d] and, with
+shared experts, ``ws_gate`` / ``ws_up`` [L, d, S·F], ``ws_down``; the layer
+axis first), ``final_norm`` and ``lm_head`` [d, V].
 ``repro`` scans the layers with ``lax.scan``; here a Python loop walks
 them.  Its sharding hints (``constraint``, ``_gather_w``) have no meaning on
 one card and are dropped, as are its remat policy and the training
 entry points (``loss_fn``, ``lm_loss``).
+
+A MoE layer runs `repro_torch.models.moe.moe_ffn` (plus the shared
+experts' SwiGLU) and adds its aux loss, which ``forward`` returns summed
+over the layers.
 
 The prefill's self-attention (a zero cache, ``cache_len == 0``, more than
 one token, no window) is causal attention over the prompt's own K/V, which
@@ -27,9 +35,15 @@ as in ``repro``.  The KV cache is updated in place: ``prefill`` fills a new
 cache, ``decode_step`` writes its token into the cache it is given and
 returns that same cache (``repro`` returns a new one).
 
+Sliding-window attention (``attn_window > 0``) is routed as ``repro``
+routes it: ``forward`` (no cache) runs the plain
+`repro_torch.models.attention.windowed_attention`; ``prefill`` and
+``decode_step`` attend over the cache with full causal attention, as
+``repro``'s do, and a windowed config's prefill takes the plain
+``blockwise_attention`` rather than K9.
+
 Constructors take the card unless given ``device``; ``prefill`` and
-``decode_step`` run where the parameters are.  MoE layers and windowed
-attention are not ported yet (ROADMAP Queue 1 item 14) and raise.
+``decode_step`` run where the parameters are.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import apply_rope, blockwise_attention, windowed_attention
 from repro_torch.models.common import ACTIVATIONS, dot, init_param, rms_norm
 
@@ -63,10 +78,10 @@ class LMConfig:
     vocab_size: int
     d_head: int = 0  # 0 -> d_model // n_heads
     activation: str = "swiglu"  # swiglu | gelu | squared_relu | silu | relu
-    moe: Optional[Any] = None  # not ported: a config with one raises
+    moe: Optional[moe_mod.MoEConfig] = None
     rope_theta: float = 10000.0
     max_seq_len: int = 32768
-    attn_window: int = 0  # > 0: sliding-window attention, not ported
+    attn_window: int = 0  # > 0: sliding-window attention in ``forward``
     dtype: torch.dtype = torch.bfloat16
     kv_block: int = 1024
 
@@ -78,20 +93,29 @@ class LMConfig:
     def gated(self) -> bool:
         return self.activation == "swiglu"
 
-    def param_count(self) -> int:
-        """Total parameters, as ``repro`` counts them (dense only)."""
-        _dense_only(self)
+    def _attn_params(self) -> int:
         d, h, kh, dh = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim
-        attn = d * h * dh + 2 * d * kh * dh + h * dh * d
-        ffn = (3 if self.gated else 2) * d * self.d_ff
-        per_layer = attn + ffn + 2 * d
+        return d * h * dh + 2 * d * kh * dh + h * dh * d
+
+    def param_count(self) -> int:
+        """Total parameters, as ``repro`` counts them."""
+        d = self.d_model
+        if self.moe:
+            m = self.moe
+            ffn = d * m.n_experts + 3 * (m.n_experts + m.n_shared_experts) * d * m.d_ff_expert
+        else:
+            ffn = (3 if self.gated else 2) * d * self.d_ff
+        per_layer = self._attn_params() + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab_size * d + d
 
-
-def _dense_only(cfg: LMConfig) -> None:
-    if cfg.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet: ROADMAP Queue 1 item 14")
+    def active_param_count(self) -> int:
+        """Activated parameters per token (MoE: top-k + shared experts)."""
+        if not self.moe:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        ffn = d * m.n_experts + 3 * (m.top_k + m.n_shared_experts) * d * m.d_ff_expert
+        per_layer = self._attn_params() + ffn + 2 * d
+        return self.n_layers * per_layer + 2 * self.vocab_size * d + d
 
 
 # ---------------------------------------------------------------------------
@@ -99,28 +123,39 @@ def _dense_only(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
-    """``(shape, init, scale)`` per parameter, in the parameter tree's layout
-    (``scale`` None: ``1/√fan_in``)."""
-    _dense_only(cfg)
+    """``(shape, init, scale, dtype)`` per parameter, in the parameter tree's
+    layout (``scale`` None: ``1/√fan_in``; ``dtype`` None: ``cfg.dtype``)."""
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n, v, f = cfg.n_layers, cfg.vocab_size, cfg.d_ff
     layers = {
-        "g1": ((n, d), "ones", None),
-        "g2": ((n, d), "ones", None),
-        "wq": ((n, d, h, dh), "normal", None),
-        "wk": ((n, d, kh, dh), "normal", None),
-        "wv": ((n, d, kh, dh), "normal", None),
-        "wo": ((n, h, dh, d), "normal", None),
+        "g1": ((n, d), "ones", None, None),
+        "g2": ((n, d), "ones", None, None),
+        "wq": ((n, d, h, dh), "normal", None, None),
+        "wk": ((n, d, kh, dh), "normal", None, None),
+        "wv": ((n, d, kh, dh), "normal", None, None),
+        "wo": ((n, h, dh, d), "normal", None, None),
     }
-    if cfg.gated:
-        layers["w_gate"] = ((n, d, f), "normal", None)
-    layers["w_up"] = ((n, d, f), "normal", None)
-    layers["w_down"] = ((n, f, d), "normal", None)
+    if cfg.moe:
+        e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+        layers["router"] = ((n, d, e), "normal", None, torch.float32)
+        layers["we_gate"] = ((n, e, d, fe), "normal", None, None)
+        layers["we_up"] = ((n, e, d, fe), "normal", None, None)
+        layers["we_down"] = ((n, e, fe, d), "normal", None, None)
+        if cfg.moe.n_shared_experts:
+            fs = cfg.moe.n_shared_experts * fe
+            layers["ws_gate"] = ((n, d, fs), "normal", None, None)
+            layers["ws_up"] = ((n, d, fs), "normal", None, None)
+            layers["ws_down"] = ((n, fs, d), "normal", None, None)
+    else:
+        if cfg.gated:
+            layers["w_gate"] = ((n, d, f), "normal", None, None)
+        layers["w_up"] = ((n, d, f), "normal", None, None)
+        layers["w_down"] = ((n, f, d), "normal", None, None)
     return {
-        "embed": ((v, d), "normal", 1.0),
+        "embed": ((v, d), "normal", 1.0, None),
         "layers": layers,
-        "final_norm": ((d,), "ones", None),
-        "lm_head": ((d, v), "normal", None),
+        "final_norm": ((d,), "ones", None, None),
+        "lm_head": ((d, v), "normal", None, None),
     }
 
 
@@ -133,8 +168,8 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     gen.manual_seed(seed)
 
     def make(spec):
-        shape, init, scale = spec
-        return init_param(shape, init, cfg.dtype, gen, device, scale)
+        shape, init, scale, dtype = spec
+        return init_param(shape, init, dtype or cfg.dtype, gen, device, scale)
 
     shapes = param_shapes(cfg)
     return {name: ({k: make(s) for k, s in spec.items()} if name == "layers" else make(spec))
@@ -144,19 +179,20 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """A parameter tree of numpy arrays (``repro``'s parameters after
     ``jax.tree.map(np.asarray, params)``) as tensors on ``device`` (the
-    card by default), in ``dtype`` or each array's own.  bfloat16 arrays go
+    card by default), in ``dtype`` or each array's own; ``router`` keeps its
+    own (fp32) either way, as ``repro`` declares it.  bfloat16 arrays go
     through fp32, which is exact both ways."""
     device = resolve_device(device)
 
-    def conv(a):
+    def conv(a, key=None):
         if isinstance(a, dict):
-            return {k: conv(x) for k, x in a.items()}
+            return {k: conv(x, k) for k, x in a.items()}
         a = np.asarray(a)
         if a.dtype.name == "bfloat16":
             t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.tensor(a)
-        return t.to(device=device, dtype=dtype or t.dtype)
+        return t.to(device=device, dtype=t.dtype if key == "router" else dtype or t.dtype)
 
     return conv(tree)
 
@@ -188,6 +224,22 @@ def _ffn_dense(x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: LMConfig) -> t
     else:
         hidden = ACTIVATIONS[cfg.activation](dot(x, lp["w_up"]).float()).to(x.dtype)
     return dot(hidden, lp["w_down"])
+
+
+def _ffn_moe(x: torch.Tensor, lp: Dict[str, torch.Tensor],
+             cfg: LMConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts (`repro_torch.models.moe.moe_ffn`) plus the shared
+    experts' SwiGLU; returns (output [B, S, d], aux loss)."""
+    b, s, d = x.shape
+    flat = x.reshape(b * s, d)
+    out, aux = moe_mod.moe_ffn(flat, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+                               cfg.moe)
+    if cfg.moe.n_shared_experts:
+        gate = dot(flat, lp["ws_gate"])
+        up = dot(flat, lp["ws_up"])
+        hidden = F.silu(gate.float()).to(flat.dtype) * up
+        out = out + dot(hidden, lp["ws_down"])
+    return out.reshape(b, s, d), aux
 
 
 def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -248,14 +300,19 @@ def _attention(
 
 def _layer(cfg: LMConfig, h: torch.Tensor, lp: Dict[str, torch.Tensor],
            positions: torch.Tensor, layer_cache: Optional[Cache] = None,
-           cache_len: Optional[int] = None) -> Tuple[torch.Tensor, Optional[Cache]]:
+           cache_len: Optional[int] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Cache]]:
     """One pre-norm block: ``h + attn(norm(h))``, then ``+ ffn(norm(h))``.
-    Returns the new hidden state and the layer's cache."""
-    _dense_only(cfg)
+    Returns the new hidden state, the layer's aux loss (fp32; 0 for a dense
+    FFN) and the layer's cache."""
     a, new_cache = _attention(rms_norm(h, lp["g1"]), lp, cfg, positions, layer_cache, cache_len)
     h = h + a
-    h = h + _ffn_dense(rms_norm(h, lp["g2"]), lp, cfg)
-    return h, new_cache
+    m = rms_norm(h, lp["g2"])
+    if cfg.moe:
+        f, aux = _ffn_moe(m, lp, cfg)
+    else:
+        f, aux = _ffn_dense(m, lp, cfg), torch.zeros((), device=h.device)
+    return h + f, aux, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -274,14 +331,17 @@ def _logits(params, h: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params, cfg: LMConfig, tokens, positions: Optional[torch.Tensor] = None):
-    """Token ids [B, S] -> (final normed hidden states [B, S, d], aux loss 0)."""
+    """Token ids [B, S] -> (final normed hidden states [B, S, d], aux loss
+    summed over the layers, fp32)."""
     h = _embed(params, cfg, tokens)
     b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=h.device).expand(b, s)
+    aux = torch.zeros((), device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _layer(cfg, h, layer_params(params, i), positions)
-    return rms_norm(h, params["final_norm"]), torch.zeros((), device=h.device)
+        h, aux_l, _ = _layer(cfg, h, layer_params(params, i), positions)
+        aux = aux + aux_l
+    return rms_norm(h, params["final_norm"]), aux
 
 
 def prefill(params, cfg: LMConfig, tokens, max_len: Optional[int] = None):
@@ -294,7 +354,8 @@ def prefill(params, cfg: LMConfig, tokens, max_len: Optional[int] = None):
     cache = empty_cache(cfg, b, max_len, device=h.device)
     positions = torch.arange(s, device=h.device).expand(b, s)
     for i in range(cfg.n_layers):
-        h, _ = _layer(cfg, h, layer_params(params, i), positions, (cache[0][i], cache[1][i]), 0)
+        h, _, _ = _layer(cfg, h, layer_params(params, i), positions,
+                         (cache[0][i], cache[1][i]), 0)
     return _logits(params, h), cache
 
 
@@ -313,6 +374,6 @@ def decode_step(params, cfg: LMConfig, cache: Cache, tokens, cache_len: int):
     cache_len = int(cache_len)
     positions = torch.full((b, s), cache_len, device=h.device)
     for i in range(cfg.n_layers):
-        h, _ = _layer(cfg, h, layer_params(params, i), positions, (cache[0][i], cache[1][i]),
-                      cache_len)
+        h, _, _ = _layer(cfg, h, layer_params(params, i), positions,
+                         (cache[0][i], cache[1][i]), cache_len)
     return _logits(params, h), cache

@@ -55,6 +55,12 @@ PORT_MODULES = {
     "repro_torch.serve", "repro_torch.serve.admission", "repro_torch.serve.coalescer",
     "repro_torch.serve.metrics", "repro_torch.serve.service", "repro_torch.serve.stream",
     "repro_torch.launch", "repro_torch.launch.serve", "repro_torch.launch.sge_run",
+    "repro_torch.models", "repro_torch.models.common", "repro_torch.models.attention",
+    "repro_torch.models.moe", "repro_torch.models.transformer",
+    "repro_torch.configs", "repro_torch.configs.lm_common", "repro_torch.configs.minitron_8b",
+    "repro_torch.configs.grok_1_314b", "repro_torch.configs.kimi_k2_1t_a32b",
+    "repro_torch.configs.nemotron_4_15b", "repro_torch.configs.stablelm_12b",
+    "repro_torch.configs.overrides", "repro_torch.kernels.flash_attention",
 }
 
 

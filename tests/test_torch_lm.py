@@ -33,7 +33,6 @@ from repro.data import graphgen as jax_graphgen  # noqa: E402
 from repro.models import attention as jax_attn  # noqa: E402
 from repro.models import common as jax_common  # noqa: E402
 from repro.models import transformer as jax_tf  # noqa: E402
-from repro.models.moe import MoEConfig  # noqa: E402
 from repro_torch.configs import minitron_8b as cfgs  # noqa: E402
 from repro_torch.data import graphgen  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -145,22 +144,6 @@ def test_constructors_default_to_the_card():
         tf.params_from_numpy(tree)
 
 
-def test_moe_and_window_configs_are_refused():
-    moe = dataclasses.replace(cfgs.SMOKE, moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=32))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tf.init_params(moe, seed=0, device="cpu")
-    params = tf.init_params(cfgs.SMOKE, seed=0, device="cpu")
-    toks = graphgen.lm_batch(1, 8, cfgs.SMOKE.vocab_size)["tokens"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tf.prefill(params, moe, toks, max_len=16)
-    window = dataclasses.replace(cfgs.SMOKE, attn_window=4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tf.forward(params, window, toks)
-    x = torch.zeros(1, 8, 4, 16)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        attn.windowed_attention(x, x, x, window=4)
-
-
 # ---------------------------------------------------------------------------
 # modules, fp32
 # ---------------------------------------------------------------------------
@@ -221,13 +204,13 @@ def test_layer_matches_repro(rng):
     zero = np.zeros((b, s_max, cfg.n_kv_heads, cfg.head_dim), np.float32)
     (want, _), _ = jax_tf._layer(jcfg, (jnp.asarray(h), jnp.float32(0)), _layer0(tree),
                                  jnp.asarray(pos))
-    got, _ = tf._layer(cfg, _t(h), tf.layer_params(params, 0), _t(pos))
+    got, _, _ = tf._layer(cfg, _t(h), tf.layer_params(params, 0), _t(pos))
     _close(got, want)
     (want, _), (wk, wv) = jax_tf._layer(jcfg, (jnp.asarray(h), jnp.float32(0)), _layer0(tree),
                                         jnp.asarray(pos), (jnp.asarray(zero),) * 2,
                                         jnp.int32(0))
     cache = (_t(zero), _t(zero))
-    got, (gk, gv) = tf._layer(cfg, _t(h), tf.layer_params(params, 0), _t(pos), cache, 0)
+    got, _, (gk, gv) = tf._layer(cfg, _t(h), tf.layer_params(params, 0), _t(pos), cache, 0)
     _close(got, want)
     _close(gk, wk)
     _close(gv, wv)
