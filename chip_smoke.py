@@ -237,6 +237,30 @@ Phases, each printed as one JSON line:
    and layer 0's
    ``windowed_attention`` equals an fp32 dense masked softmax of its q/k/v,
    four heads at a time.
+12. training — ``loss_fn`` (chunked fp32 cross-entropy, checkpointed layers),
+   AdamW, ``TrainLoop``, checkpoints and the driver; no kernel of K1–K9 runs
+   in training (every launch count must stay 0).  12a: minitron-8b's and
+   grok-1's ``SMOKE`` in fp32, parameters drawn once on the CPU and copied
+   to the card, 5 ``TrainLoop`` steps at accumulation 1 and 2 on the same
+   ``lm_data_iterator`` batches on the card and on the CPU: every loss, the
+   first grad norm, the first step's gradients over max(1, each leaf's
+   largest) and the final parameters (relative L2) within 1e-4, the
+   first step's gradients leaf by leaf over each leaf's largest within 5e-4,
+   the steps' update (relative L2) within 5e-3, and one AdamW update from
+   the same parameters, moments and gradients within 2 ulps of the new
+   parameter plus 1e-5 of each leaf's largest update.  12b:
+   ``repro_torch.launch.train`` on minitron-8b for 20 steps into a
+   checkpoint directory, then to 30 on it: the first run improves, the
+   second restores step 20 and starts below the first on the same first
+   batch, and the checkpoint restores to bf16 tensors on the card, copied
+   into the tensors it was given.  12c:
+   minitron-8b at full width (4 of 32 layers, ``loss_chunk`` 4,096, 2.80 B
+   bf16 parameters), 8 steps of 2 × 4,096 tokens: finite losses, the first
+   within 2 of ln 256,000, the last below the first plus 0.05 (the
+   batches' spread), the first batch's loss lower after training than
+   before, the peak memory under the card's; it prints per-step seconds,
+   tokens/s, the model-FLOP rate (6 · ``n_active`` · tokens), the peak
+   memory and one profiled step's busy share and top kernels.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -323,6 +347,46 @@ LMF_WINDOW_SEQ = 8192
 LMF_WINDOW_HEADS = 4
 LMF_TOL = 2e-2
 LMF_K9_TIMED = (112, 160)
+# phase 12, the training path.  12a: each module of TRAIN_CHECK_CFGS's SMOKE
+# in fp32, its parameters drawn once on the CPU (LM_SEED) and copied to the
+# card, TRAIN_CHECK_STEPS TrainLoop steps at each accumulation of
+# TRAIN_CHECK_ACCUM on the same lm_data_iterator batches (TRAIN_CHECK_BATCH ×
+# TRAIN_CHECK_SEQ per microbatch, seed LM_TOKEN_SEED) on the card and on the
+# CPU: losses, the first grad norm, the first step's gradients over max(1,
+# each leaf's largest) and the final parameters (relative L2) within
+# TRAIN_TOL, the first step's gradients leaf by leaf over each leaf's own
+# largest magnitude within TRAIN_GRAD_TOL (measured up to 8.5e-5 on an
+# H100), the five steps' update (parameters minus their start, relative L2)
+# within TRAIN_UPDATE_TOL (measured up to 2.4e-3: a near-zero gradient whose
+# sign the summation orders disagree on moves a parameter ~lr on one side
+# only), and one AdamW update from the same parameters, moments and
+# gradients on both, leaf by leaf beyond 2 ulps of the new parameter over
+# the leaf's largest update, within TRAIN_SAME_UPDATE_TOL (an ulp of a
+# parameter is up to 2e-3 of this update's size).  12b: the driver
+# (repro_torch.launch.train) on minitron-8b for TRAIN_DRIVER_STEPS[0]
+# steps, then again on the same checkpoint directory to
+# TRAIN_DRIVER_STEPS[1].  12c: minitron-8b at full
+# width under the overrides TRAIN_FULL, TRAIN_FULL_STEPS steps of
+# TRAIN_FULL_BATCH × TRAIN_FULL_SEQ tokens under TRAIN_FULL_OPT.
+TRAIN_CHECK_CFGS = ("minitron_8b", "grok_1_314b")
+TRAIN_CHECK_STEPS = 5
+TRAIN_CHECK_ACCUM = (1, 2)
+TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ = 4, 64
+TRAIN_CHECK_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=5)
+TRAIN_TOL = 1e-4
+TRAIN_GRAD_TOL = 5e-4
+TRAIN_UPDATE_TOL = 5e-3
+TRAIN_SAME_UPDATE_TOL = 1e-5
+TRAIN_DRIVER_STEPS = (20, 30)
+TRAIN_FULL = ["n_layers=4", "loss_chunk=4096"]
+TRAIN_FULL_STEPS = 8
+TRAIN_FULL_BATCH, TRAIN_FULL_SEQ = 2, 4096
+TRAIN_FULL_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=8)
+# 12c's training losses are each on a new batch: they spread over 0.033
+# (12.935 to 12.968 on an H100) while the steps lower them by less, so the
+# last is held below the first plus this margin, and the first batch's loss
+# evaluated again after training is held below its loss before
+TRAIN_FULL_LOSS_SPREAD = 0.05
 # phase 7, the dynamic path: benchmarks/bench_incremental.py's regime at the
 # size of PPIS32's largest target (a power-law target of N_T nodes, average
 # degree 4, 4 node labels, one edge label), its pattern rule (a 4-edge
@@ -4354,6 +4418,345 @@ def run_lm_family_path(device, smi: str) -> tuple:
     return launches, cases, timing
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the training path (loss_fn, AdamW, TrainLoop, checkpoints, driver)
+# ---------------------------------------------------------------------------
+
+class RecordingStep:
+    """A ``TrainStep`` whose metrics (as floats) are kept, step by step."""
+
+    def __init__(self, step):
+        self.step, self.metrics = step, []
+
+    def grads(self, params, batch):
+        return self.step.grads(params, batch)
+
+    def apply(self, params, opt_state, grads, metrics):
+        out = self.step.apply(params, opt_state, grads, metrics)
+        self.metrics.append({k: float(v) for k, v in out[2].items()})
+        return out
+
+
+def _train_batches(cfg, batch: int, seq: int, accum: int, device):
+    from repro_torch.launch.train import lm_data_iterator
+
+    for b in lm_data_iterator(cfg, batch * accum, seq, seed=LM_TOKEN_SEED, device=device):
+        yield {k: v.reshape(accum, batch, seq) for k, v in b.items()} if accum > 1 else b
+
+
+def _rel_err(a, b, floor: float = 1.0) -> float:
+    """Largest difference over the reference's largest magnitude (at least
+    ``floor``)."""
+    import torch
+
+    a, b = torch.as_tensor(a).double().cpu(), torch.as_tensor(b).double().cpu()
+    return float((a - b).abs().max() / max(floor, float(b.abs().max())))
+
+
+def _tree_rel_l2(a: dict, b: dict) -> float:
+    """L2 norm of the difference of two flat trees over the reference's."""
+    diff = sum(float((a[k].double().cpu() - v.double().cpu()).square().sum()) for k, v in b.items())
+    return (diff / sum(float(v.double().square().sum()) for v in b.values())) ** 0.5
+
+
+def _same_update_err(opt_cfg, params, state, grads, device) -> Tuple[dict, dict]:
+    """One AdamW update (``optimizer.update``) on the CPU and on the card
+    from the same parameters, moments and gradients.  Each leaf's largest
+    difference of the two new parameters beyond 2 ulps of the CPU's (the
+    fp32 rounding of ``p - lr · (...)``, where an ulp of a cosine or power in
+    ``lr`` and the bias corrections can flip it) over the leaf's largest
+    update; and the raw difference over the largest update, printed."""
+    import math
+
+    import torch
+
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    start = dict(leaves_with_paths(params))
+    new = {}
+    for dev in ("cpu", device):
+        p, s, g = (tree_map(lambda x: x.to(dev, copy=True), t) for t in (params, state, grads))
+        opt.update(opt_cfg, g, s, p)
+        new[str(dev)] = {k: x.cpu() for k, x in leaves_with_paths(p)}
+    cpu, card = new["cpu"], new[str(device)]
+    beyond, raw = {}, {}
+    for k, want in cpu.items():
+        scale = max(1e-12, float((want - start[k]).abs().max()))
+        diff = (card[k] - want).abs()
+        ulp = torch.nextafter(want.abs(), torch.tensor(math.inf)) - want.abs()
+        beyond[k] = float((diff - 2 * ulp).clamp_min(0).max()) / scale
+        raw[k] = float(diff.max()) / scale
+    return beyond, raw
+
+
+def train_card_vs_cpu(device, name: str, accum: int) -> dict:
+    """12a: ``name``'s SMOKE in fp32 trained on the card and on the CPU from
+    the same parameters on the same batches.  Gated: every step's loss, the
+    first grad norm, the first step's gradients (from the same parameters)
+    leaf by leaf over the larger of 1 and the leaf's largest magnitude, and
+    the final parameters in relative L2 over the tree within ``TRAIN_TOL``;
+    the first step's gradients leaf by leaf over each leaf's own largest
+    magnitude within ``TRAIN_GRAD_TOL``; the update the steps made (final parameters minus
+    the start) in relative L2 within ``TRAIN_UPDATE_TOL``; and one AdamW
+    update from the CPU run's final parameters and moments with its first
+    gradients, made on both, leaf by leaf beyond the rounding of the new
+    parameter within ``TRAIN_SAME_UPDATE_TOL`` (``_same_update_err``).
+    AdamW's first steps move each parameter by about ``lr`` in the sign of
+    its gradient, so a gradient near zero whose sign the two summation
+    orders disagree on moves a parameter by ~``lr`` on one side only: the
+    largest elementwise parameter difference, and the later steps' grad
+    norms (which then also see a MoE near-tie rerouted), are printed, not
+    gated."""
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import LoopConfig, TrainLoop, make_train_step
+    from repro_torch.train.tree import leaves_with_paths, tree_map
+
+    cfg = dataclasses.replace(importlib.import_module(f"repro_torch.configs.{name}").SMOKE,
+                              dtype=torch.float32)
+    opt_cfg = opt.AdamWConfig(**TRAIN_CHECK_OPT)
+    init = tf.init_params(cfg, seed=LM_SEED, device="cpu")
+    runs = {}
+    for dev in ("cpu", device):
+        params = tree_map(lambda p: p.to(dev, copy=True), init)
+        step = RecordingStep(make_train_step(lambda p, b: tf.loss_fn(p, cfg, b), opt_cfg, accum))
+        first = next(_train_batches(cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, accum, dev))
+        g0 = step.grads(params, first)[0]
+        loop = TrainLoop(step, LoopConfig(total_steps=TRAIN_CHECK_STEPS, log_every=1),
+                         log=lambda *_: None)
+        t0 = time.perf_counter()
+        params, state, hist = loop.run(params, opt.init(params), _train_batches(
+            cfg, TRAIN_CHECK_BATCH, TRAIN_CHECK_SEQ, accum, dev))
+        runs[str(dev)] = dict(hist=hist, metrics=step.metrics, grads0_tree=g0,
+                              grads0={k: g.cpu() for k, g in leaves_with_paths(g0)},
+                              params_tree=params, state=state,
+                              params={k: p.cpu() for k, p in leaves_with_paths(params)},
+                              seconds=time.perf_counter() - t0)
+    cpu, card = runs["cpu"], runs[str(device)]
+    start = dict(leaves_with_paths(init))
+    grad_err = {k: _rel_err(card["grads0"][k], g, floor=1e-8) for k, g in cpu["grads0"].items()}
+    grad_unit = {k: _rel_err(card["grads0"][k], g) for k, g in cpu["grads0"].items()}
+    param_err = {k: _rel_err(card["params"][k], p) for k, p in cpu["params"].items()}
+    same_update, same_update_raw = _same_update_err(opt_cfg, cpu["params_tree"], cpu["state"],
+                                   cpu["grads0_tree"], device)
+    norms = [(a["grad_norm"], b["grad_norm"]) for a, b in zip(card["metrics"], cpu["metrics"])]
+    res = dict(model=cfg.name, accum=accum, steps=TRAIN_CHECK_STEPS, dtype="float32",
+               batch=TRAIN_CHECK_BATCH, seq=TRAIN_CHECK_SEQ, opt=TRAIN_CHECK_OPT, tol=TRAIN_TOL,
+               grad_tol=TRAIN_GRAD_TOL, update_tol=TRAIN_UPDATE_TOL,
+               same_update_tol=TRAIN_SAME_UPDATE_TOL,
+               loss_card=card["hist"], loss_cpu=cpu["hist"],
+               grad_norm_card=[a for a, _ in norms], grad_norm_cpu=[b for _, b in norms],
+               loss_rel_err=max(abs(a - b) / abs(b) for a, b in zip(card["hist"], cpu["hist"])),
+               first_grads_err=max(grad_err.values()),
+               first_grads_err_leaf=max(grad_err, key=grad_err.get),
+               first_grads_err_over_max_1=max(grad_unit.values()),
+               first_grad_norm_rel_err=abs(norms[0][0] - norms[0][1]) / norms[0][1],
+               param_rel_l2=_tree_rel_l2(card["params"], cpu["params"]),
+               update_rel_l2=_tree_rel_l2({k: card["params"][k] - start[k] for k in start},
+                                          {k: cpu["params"][k] - start[k] for k in start}),
+               same_update_err=max(same_update.values()),
+               same_update_err_leaf=max(same_update, key=same_update.get),
+               printed=dict(
+                   same_update_err_with_rounding=max(same_update_raw.values()),
+                   grad_norm_rel_err=max(abs(a - b) / b for a, b in norms),
+                   param_max_err=max(param_err.values()),
+                   param_max_err_leaf=max(param_err, key=param_err.get)),
+               card_s=card["seconds"], cpu_s=cpu["seconds"])
+    res["ok"] = (len(card["hist"]) == len(cpu["hist"]) == TRAIN_CHECK_STEPS
+                 and max(res["loss_rel_err"], res["first_grads_err_over_max_1"],
+                         res["first_grad_norm_rel_err"], res["param_rel_l2"]) <= TRAIN_TOL
+                 and res["first_grads_err"] <= TRAIN_GRAD_TOL
+                 and res["update_rel_l2"] <= TRAIN_UPDATE_TOL
+                 and res["same_update_err"] <= TRAIN_SAME_UPDATE_TOL)
+    return res
+
+
+_TRAIN_LINE = re.compile(r"^\[train\] (\S+): loss (\S+) -> (\S+) \((improved|NOT improved)\)$",
+                         re.M)
+
+
+def train_driver(device) -> dict:
+    """12b: ``repro_torch.launch.train.main`` on minitron-8b for
+    ``TRAIN_DRIVER_STEPS[0]`` steps with a checkpoint directory, then again
+    to ``TRAIN_DRIVER_STEPS[1]`` on the same directory; the second run must
+    restore the first's last step, and its first loss (the stream's first
+    batch, on the trained parameters) must be below the first run's (the
+    same batch, on the initial ones).  The checkpoint restores to bf16."""
+    import io
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import minitron_8b
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+
+    ck = ROOT / "build" / "train_driver_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    runs = []
+    for steps in TRAIN_DRIVER_STEPS:
+        argv = ["--arch", "minitron-8b", "--steps", str(steps), "--ckpt-dir", str(ck)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc, counts = _launched(lambda: launch.main(argv + ["--device", str(device)]))
+        out = buf.getvalue()
+        m = _TRAIN_LINE.search(out)
+        runs.append(dict(argv=argv, rc=rc, seconds=time.perf_counter() - t0, launches=counts,
+                         first_loss=float(m.group(2)) if m else None,
+                         last_loss=float(m.group(3)) if m else None,
+                         verdict=m.group(4) if m else None,
+                         restored=re.findall(r"restored checkpoint at step (\d+)", out),
+                         tail=out.splitlines()[-3:]))
+    like = tf.init_params(minitron_8b.SMOKE, seed=0, device=device)
+    head0 = like["lm_head"].clone()
+    step, params, state = store.restore_latest(str(ck), like_params=like, like_opt=opt.init(like))
+    dtypes = sorted({str(p.dtype) for p in [params["embed"], params["final_norm"],
+                                            params["lm_head"], *params["layers"].values()]})
+    moved = not torch.equal(params["lm_head"], head0)
+    shutil.rmtree(ck, ignore_errors=True)
+    first, second = runs
+    res = dict(runs=runs, restored_step=step, restored_dtypes=dtypes,
+               restored_device=str(params["embed"].device), restored_opt_step=int(state.step),
+               restored_params_trained=moved)
+    res["ok"] = (all(r["rc"] == 0 and r["verdict"] for r in runs)
+                 and first["verdict"] == "improved"
+                 and second["restored"] == [str(TRAIN_DRIVER_STEPS[0])]
+                 and second["first_loss"] < first["first_loss"]
+                 and step == TRAIN_DRIVER_STEPS[1] and dtypes == ["torch.bfloat16"] and moved)
+    return res
+
+
+def train_full_width(device, smi: str) -> dict:
+    """12c: minitron-8b at full width (``TRAIN_FULL``) trained
+    ``TRAIN_FULL_STEPS`` steps by ``TrainLoop``: per-step seconds, tokens/s
+    and model-FLOP rate, the peak memory, and one more step profiled.
+    Gates: finite losses, the first ``lm_loss`` within 2 of ln V, the last
+    loss below the first plus ``TRAIN_FULL_LOSS_SPREAD``, the peak under the
+    card's memory, and the first batch's loss lower after training than
+    before it.  Each step sees a new
+    batch of uniformly drawn sequences, so the training losses move by
+    about the batch-to-batch spread in 8 steps; the first batch, trained on
+    once and evaluated again, shows that the steps lower the loss of what
+    they were taken on."""
+    import itertools
+    import math
+
+    import torch
+
+    from repro_torch.configs import lm_common, minitron_8b, overrides
+    from repro_torch.launch.train import lm_data_iterator
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import LoopConfig, TrainLoop, make_train_step
+
+    base = minitron_8b.CFG
+    cfg = overrides.apply(base, TRAIN_FULL)
+    tokens = TRAIN_FULL_BATCH * TRAIN_FULL_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = tf.init_params(cfg, seed=LM_SEED, device=device)
+    state = opt.init(params)
+    torch.cuda.synchronize(device)
+    state_gb = torch.cuda.memory_allocated(device) / 1e9
+    step = RecordingStep(make_train_step(lambda p, b: tf.loss_fn(p, cfg, b),
+                                         opt.AdamWConfig(**TRAIN_FULL_OPT)))
+    stamps = []
+
+    def log(msg):  # called after each step's update: the card is synchronised
+        torch.cuda.synchronize(device)
+        stamps.append(time.perf_counter())
+
+    def first_batch_loss():
+        with torch.no_grad():
+            return float(tf.loss_fn(params, cfg, first)[1]["lm_loss"])
+
+    data = lm_data_iterator(cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, seed=LM_TOKEN_SEED,
+                            device=device)
+    first = next(data)
+    first_before = first_batch_loss()
+    loop = TrainLoop(step, LoopConfig(total_steps=TRAIN_FULL_STEPS, log_every=1), log=log)
+    t0 = time.perf_counter()
+    (params, state, hist), counts = _launched(
+        lambda: loop.run(params, state, itertools.chain([first], data)))
+    step_s = [b - a for a, b in zip([t0] + stamps[:-1], stamps)]
+    peak = torch.cuda.max_memory_allocated(device)
+    first_after = first_batch_loss()
+    flops = 6 * lm_common.n_active(cfg) * tokens
+    steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    # a batch of its own: the loop's prefetch thread may still be drawing from ``data``
+    batch = next(lm_data_iterator(cfg, TRAIN_FULL_BATCH, TRAIN_FULL_SEQ, seed=LM_TOKEN_SEED + 1,
+                                  device=device))
+    profile = profile_call(lambda: step.step(params, state, batch))
+    first_lm = step.metrics[0]["lm_loss"]
+    res = dict(model=cfg.name, overrides=TRAIN_FULL, n_layers=cfg.n_layers, d_model=cfg.d_model,
+               n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+               vocab=cfg.vocab_size, dtype=str(cfg.dtype), loss_chunk=cfg.loss_chunk,
+               params=cfg.param_count(), n_active=lm_common.n_active(cfg),
+               batch=TRAIN_FULL_BATCH, seq=TRAIN_FULL_SEQ, opt=TRAIN_FULL_OPT,
+               reduced=[f"layers {base.n_layers} -> {cfg.n_layers} (full width)",
+                        f"batch {lm_common.TRAIN_SHAPE['batch']} -> {TRAIN_FULL_BATCH}, seq "
+                        f"{lm_common.TRAIN_SHAPE['seq']} (TRAIN_SHAPE)",
+                        f"loss_chunk {base.loss_chunk} -> {cfg.loss_chunk} (tiling only)",
+                        f"random weights (seed {LM_SEED}), lm_data_iterator seed "
+                        f"{LM_TOKEN_SEED}", "no checkpoint"],
+               losses=hist, lm_loss_first=first_lm, ln_vocab=math.log(cfg.vocab_size),
+               first_batch_loss_before=first_before, first_batch_loss_after=first_after,
+               grad_norms=[m["grad_norm"] for m in step.metrics],
+               step_s=step_s, steady_step_s=steady, tokens_per_s=tokens / steady,
+               model_flops_per_step=flops, model_tflop_per_s=flops / steady / 1e12,
+               state_gb=state_gb, peak_memory_gb=peak / 1e9,
+               card_memory_gb=torch.cuda.get_device_properties(device).total_memory / 1e9,
+               launches=counts, profile=profile, nvidia_smi=smi)
+    res["ok"] = (len(hist) == TRAIN_FULL_STEPS and all(math.isfinite(x) for x in hist)
+                 and abs(first_lm - res["ln_vocab"]) < 2.0
+                 and hist[-1] < hist[0] + TRAIN_FULL_LOSS_SPREAD
+                 and first_after < first_before
+                 and peak < torch.cuda.get_device_properties(device).total_memory)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_train_path(device, smi: str) -> dict:
+    """Phase 12: 12a the card against the CPU, 12b the driver, 12c full
+    width.  No kernel of K1–K9 runs in training (``forward`` attends with the
+    plain ``blockwise_attention``); every launch count must stay 0."""
+    t_phase = time.perf_counter()
+    checks = []
+    for name in TRAIN_CHECK_CFGS:
+        for accum in TRAIN_CHECK_ACCUM:
+            res, counts = _launched(lambda: train_card_vs_cpu(device, name, accum))
+            checks.append(dict(res, launches=counts))
+    emit(dict(phase="train_card_vs_cpu", cases=checks, nvidia_smi=smi))
+    driver = train_driver(device)
+    emit(dict(phase="train_driver", **driver, nvidia_smi=smi))
+    full = train_full_width(device, smi)
+    emit(dict(phase="train_full_width", **full))
+    launched = {k: v for r in checks + driver["runs"] + [full]
+                for k, v in r["launches"].items() if v}
+    emit(dict(phase="train_done", launches=launched, nvidia_smi=smi,
+              train_path_s=time.perf_counter() - t_phase))
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"training on the card != on the CPU: "
+                             f"{[c for c in checks if not c['ok']]}")
+    if not driver["ok"]:
+        raise AssertionError(f"the training driver's restart failed its gates: {driver}")
+    if not full["ok"]:
+        raise AssertionError(f"full-width training failed its gates: {full}")
+    if launched:
+        raise AssertionError(f"the training path launched kernels: {launched}")
+    return full
+
+
 def main() -> int:
     try:
         import torch
@@ -4452,6 +4855,8 @@ def main() -> int:
         timing["flash_attention"].update({f"{key}_{k}": t[k] for k in (
             "ms", "plain_ms", "library_ms", "fp32_ms", "ops_bound_ms", "bytes", "ops")})
         timing["flash_attention"][f"{key}_shape"] = t["shape"]
+
+    run_train_path(device, smi)
 
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",

@@ -2,7 +2,7 @@
 MoE 8 experts top-2.  [hf:xai-org/grok-1; unverified]
 
 The numbers of ``repro.configs.grok_1_314b`` (``CFG`` and the CPU-sized
-``SMOKE``), without its training-only ``loss_chunk``.
+``SMOKE``).
 """
 
 from repro_torch.models.moe import MoEConfig
@@ -18,6 +18,7 @@ CFG = LMConfig(
     vocab_size=131072,
     activation="swiglu",
     moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32768),
+    loss_chunk=65536,
     max_seq_len=32768,
 )
 
@@ -31,6 +32,7 @@ SMOKE = LMConfig(
     vocab_size=256,
     activation="swiglu",
     moe=MoEConfig(n_experts=4, top_k=2, d_ff_expert=128, capacity_round=8),
+    loss_chunk=16,
     max_seq_len=64,
     kv_block=8,
 )

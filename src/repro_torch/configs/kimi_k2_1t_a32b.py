@@ -2,7 +2,7 @@
 vocab=163840, MoE 384 experts top-8 (+1 shared).  [arXiv:2501.kimi2; unverified]
 
 The numbers of ``repro.configs.kimi_k2_1t_a32b`` (``CFG`` and the CPU-sized
-``SMOKE``), without its training-only ``loss_chunk``.
+``SMOKE``).
 """
 
 from repro_torch.models.moe import MoEConfig
@@ -18,6 +18,7 @@ CFG = LMConfig(
     vocab_size=163840,
     activation="swiglu",
     moe=MoEConfig(n_experts=384, top_k=8, d_ff_expert=2048, n_shared_experts=1),
+    loss_chunk=65536,
     max_seq_len=32768,
 )
 
@@ -32,6 +33,7 @@ SMOKE = LMConfig(
     activation="swiglu",
     moe=MoEConfig(n_experts=8, top_k=4, d_ff_expert=64, n_shared_experts=1,
                   capacity_round=8),
+    loss_chunk=16,
     max_seq_len=64,
     kv_block=8,
 )

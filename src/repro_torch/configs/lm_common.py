@@ -1,6 +1,6 @@
 """The LM cells' shapes and the model-FLOPs convention (the numeric half of
-``repro.configs.lm_common``; its cell builders need the registry and the
-trainer, which are not ported yet).
+``repro.configs.lm_common``; its cell builders need the registry, which is
+not ported yet).
 
 Shapes:
   * ``train_4k``    seq 4,096 × global batch 256

@@ -2,8 +2,8 @@
 (pruned nemotron).  [arXiv:2407.14679; hf]
 
 The numbers of ``repro.configs.minitron_8b`` (``CFG`` and the CPU-sized
-``SMOKE``), without its training-only ``loss_chunk``, and the serving
-shapes of `repro_torch.configs.lm_common` beside them.
+``SMOKE``), and the serving shapes of `repro_torch.configs.lm_common`
+beside them.
 """
 
 from repro_torch.configs.lm_common import DECODE_SHAPE, PREFILL_SHAPE  # noqa: F401
@@ -18,6 +18,7 @@ CFG = LMConfig(
     d_ff=16384,
     vocab_size=256000,
     activation="squared_relu",
+    loss_chunk=65536,
     max_seq_len=32768,
 )
 
@@ -30,6 +31,7 @@ SMOKE = LMConfig(
     d_ff=128,
     vocab_size=256,
     activation="squared_relu",
+    loss_chunk=16,
     max_seq_len=64,
     kv_block=8,
 )

@@ -2,7 +2,7 @@
 squared-ReLU MLP.  [arXiv:2402.16819; unverified]
 
 The numbers of ``repro.configs.nemotron_4_15b`` (``CFG`` and the CPU-sized
-``SMOKE``), without its training-only ``loss_chunk``.
+``SMOKE``).
 """
 
 from repro_torch.models.transformer import LMConfig
@@ -16,6 +16,7 @@ CFG = LMConfig(
     d_ff=24576,
     vocab_size=256000,
     activation="squared_relu",
+    loss_chunk=65536,
     max_seq_len=32768,
 )
 
@@ -28,6 +29,7 @@ SMOKE = LMConfig(
     d_ff=128,
     vocab_size=256,
     activation="squared_relu",
+    loss_chunk=16,
     max_seq_len=64,
     kv_block=8,
 )

@@ -2,8 +2,7 @@
 [hf:stabilityai/stablelm-2-1_6b; hf]
 
 The numbers of ``repro.configs.stablelm_12b`` (``CFG`` and the CPU-sized
-``SMOKE``), without its training-only ``loss_chunk``.  Its head width is
-5120 / 32 = 160.
+``SMOKE``).  Its head width is 5120 / 32 = 160.
 """
 
 from repro_torch.models.transformer import LMConfig
@@ -17,6 +16,7 @@ CFG = LMConfig(
     d_ff=13824,
     vocab_size=100352,
     activation="swiglu",
+    loss_chunk=65536,
     max_seq_len=32768,
 )
 
@@ -29,6 +29,7 @@ SMOKE = LMConfig(
     d_ff=96,
     vocab_size=256,
     activation="swiglu",
+    loss_chunk=16,
     max_seq_len=64,
     kv_block=8,
 )

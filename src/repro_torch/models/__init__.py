@@ -1,4 +1,4 @@
-"""Models of the port (a port of ``repro.models``, LM serving only).
+"""Models of the port (a port of ``repro.models``: the LMs).
 
   common      — rms_norm, activations, the matmul in the activation dtype,
                 the parameter initialiser
@@ -7,9 +7,9 @@
   moe         — top-k routing with group-local sort dispatch over the kept
                 pairs, the expert FFN, the load-balance loss
   transformer — the decoder-only LM, dense or MoE: LMConfig, parameters,
-                forward, prefill (every layer's attention through K9
-                ``flash_attention``) and decode_step
+                forward, the chunked loss (lm_loss, loss_fn), prefill
+                (every layer's attention through K9 ``flash_attention``)
+                and decode_step
 
-Training and the GNN and recsys models are not ported yet (ROADMAP Queue 1
-item 14).
+The GNN and recsys models are not ported yet (ROADMAP Queue 1 item 14).
 """

@@ -1,12 +1,14 @@
 """Decoder-only LM transformer: GQA + RoPE + a dense or MoE FFN (a port of
-the serving half of ``repro.models.transformer``), for all five LM
-configurations of `repro_torch.configs`.
+``repro.models.transformer``), for all five LM configurations of
+`repro_torch.configs`.
 
 Entry points:
   * ``init_params(cfg, seed, device)``                → parameter dict
   * ``params_from_numpy(tree, device, dtype)``        → parameter dict
   * ``empty_cache(cfg, batch, max_len, device)``      → zero KV cache
   * ``forward(params, cfg, tokens)``                  → final hidden states
+  * ``lm_loss(hidden, head, labels, chunk)``          → (mean loss, token count)
+  * ``loss_fn(params, cfg, batch)``                   → (loss, metrics)
   * ``prefill(params, cfg, tokens, max_len)``         → (last-pos logits, KV cache)
   * ``decode_step(params, cfg, cache, tokens, pos)``  → (logits, cache)
 
@@ -19,8 +21,13 @@ shared experts, ``ws_gate`` / ``ws_up`` [L, d, S·F], ``ws_down``; the layer
 axis first), ``final_norm`` and ``lm_head`` [d, V].
 ``repro`` scans the layers with ``lax.scan``; here a Python loop walks
 them.  Its sharding hints (``constraint``, ``_gather_w``) have no meaning on
-one card and are dropped, as are its remat policy and the training
-entry points (``loss_fn``, ``lm_loss``).
+one card and are dropped.  Under ``cfg.remat``, a ``forward`` that records
+gradients checkpoints each layer (``repro``'s ``jax.checkpoint`` with
+``nothing_saveable``): the backward recomputes the layer from its input.
+Both this and ``lm_loss``'s chunks use the non-reentrant
+``torch.utils.checkpoint``, which fails on a recomputation whose saved
+tensors differ in shape from the first pass's (a MoE layer's dispatch runs
+again there and keeps the same pairs from the same input).
 
 A MoE layer runs `repro_torch.models.moe.moe_ffn` (plus the shared
 experts' SwiGLU) and adds its aux loss, which ``forward`` returns summed
@@ -54,6 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
@@ -66,8 +74,7 @@ Cache = Tuple[torch.Tensor, torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """``repro``'s LMConfig without its training fields (``loss_chunk``,
-    ``remat``, ``aux_loss_weight``); ``dtype`` is a torch dtype."""
+    """``repro``'s LMConfig, field for field; ``dtype`` is a torch dtype."""
 
     name: str
     n_layers: int
@@ -83,7 +90,10 @@ class LMConfig:
     max_seq_len: int = 32768
     attn_window: int = 0  # > 0: sliding-window attention in ``forward``
     dtype: torch.dtype = torch.bfloat16
+    loss_chunk: int = 2048  # tokens per fp32 logits chunk in ``lm_loss``
     kv_block: int = 1024
+    remat: bool = True  # checkpoint each layer when training
+    aux_loss_weight: float = 0.01  # MoE load-balance loss, per layer
 
     @property
     def head_dim(self) -> int:
@@ -330,18 +340,78 @@ def _logits(params, h: torch.Tensor) -> torch.Tensor:
     return h[:, -1].float() @ params["lm_head"].float()
 
 
+def _train_layer(cfg: LMConfig, h: torch.Tensor, lp: Dict[str, torch.Tensor],
+                 positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    h, aux, _ = _layer(cfg, h, lp, positions)
+    return h, aux
+
+
 def forward(params, cfg: LMConfig, tokens, positions: Optional[torch.Tensor] = None):
     """Token ids [B, S] -> (final normed hidden states [B, S, d], aux loss
-    summed over the layers, fp32)."""
+    summed over the layers, fp32).  Each layer is checkpointed when
+    ``cfg.remat`` holds and gradients are being recorded."""
     h = _embed(params, cfg, tokens)
     b, s = h.shape[:2]
     if positions is None:
         positions = torch.arange(s, device=h.device).expand(b, s)
+    remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=h.device)
     for i in range(cfg.n_layers):
-        h, aux_l, _ = _layer(cfg, h, layer_params(params, i), positions)
+        lp = layer_params(params, i)
+        if remat:
+            h, aux_l = checkpoint(_train_layer, cfg, h, lp, positions, use_reentrant=False)
+        else:
+            h, aux_l = _train_layer(cfg, h, lp, positions)
         aux = aux + aux_l
     return rms_norm(h, params["final_norm"]), aux
+
+
+def _loss_chunk(hc: torch.Tensor, yc: torch.Tensor,
+                head: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's summed cross-entropy over its labelled tokens and their
+    count, from fp32 logits ``[chunk, V]``."""
+    logits = hc.float() @ head.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(1, yc.clamp_min(0)[:, None])[:, 0]
+    mask = (yc >= 0).float()
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def lm_loss(hidden: torch.Tensor, head: torch.Tensor, labels,
+            chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked cross-entropy: mean over the tokens whose label is not -1,
+    and their count (fp32).  Logits are made in fp32 ``chunk`` tokens at a
+    time, each chunk checkpointed, so the backward too holds one chunk's
+    ``[chunk, V]`` logits at a time; the last chunk is padded with -1
+    labels.  ``repro`` takes the gold logit by a masked sum over the vocab
+    (for its sharding); the gather here gives the same value."""
+    b, s, d = hidden.shape
+    t = b * s
+    hf = hidden.reshape(t, d)
+    yf = torch.as_tensor(labels, device=hidden.device).reshape(t).long()
+    chunk = min(chunk, t)
+    n_chunks = (t + chunk - 1) // chunk
+    pad = n_chunks * chunk - t
+    hf = F.pad(hf, (0, 0, 0, pad))
+    yf = F.pad(yf, (0, pad), value=-1)
+    sums, counts = [], []
+    for i in range(0, n_chunks * chunk, chunk):
+        total_c, count_c = checkpoint(_loss_chunk, hf[i:i + chunk], yf[i:i + chunk], head,
+                                      use_reentrant=False)
+        sums.append(total_c)
+        counts.append(count_c)
+    total, count = torch.stack(sums).sum(), torch.stack(counts).sum()
+    return total / count.clamp_min(1.0), count
+
+
+def loss_fn(params, cfg: LMConfig, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss of ``batch`` (``tokens`` and ``labels`` [B, S]) plus,
+    for a MoE model, ``aux_loss_weight`` times the load-balance loss per
+    layer.  Returns (total, {"lm_loss", "aux_loss", "tokens"})."""
+    hidden, aux = forward(params, cfg, batch["tokens"])
+    loss, count = lm_loss(hidden, params["lm_head"], batch["labels"], cfg.loss_chunk)
+    total = loss + (cfg.aux_loss_weight * aux / cfg.n_layers if cfg.moe else 0.0)
+    return total, {"lm_loss": loss, "aux_loss": aux, "tokens": count}
 
 
 def prefill(params, cfg: LMConfig, tokens, max_len: Optional[int] = None):

@@ -61,6 +61,9 @@ PORT_MODULES = {
     "repro_torch.configs.grok_1_314b", "repro_torch.configs.kimi_k2_1t_a32b",
     "repro_torch.configs.nemotron_4_15b", "repro_torch.configs.stablelm_12b",
     "repro_torch.configs.overrides", "repro_torch.kernels.flash_attention",
+    "repro_torch.train", "repro_torch.train.tree", "repro_torch.train.optimizer",
+    "repro_torch.train.trainer", "repro_torch.checkpoint", "repro_torch.checkpoint.store",
+    "repro_torch.data.tokens", "repro_torch.launch.train",
 }
 
 

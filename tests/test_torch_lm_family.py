@@ -52,7 +52,6 @@ CONFIGS = {"grok_1_314b": (jax_grok, grok_1_314b), "kimi_k2_1t_a32b": (jax_kimi,
            "minitron_8b": (jax_minitron, minitron_8b),
            "nemotron_4_15b": (jax_nemotron, nemotron_4_15b),
            "stablelm_12b": (jax_stablelm, stablelm_12b)}
-DROPPED = {"loss_chunk", "remat", "aux_loss_weight"}  # repro's training fields
 
 
 def _t(a) -> torch.Tensor:
@@ -76,10 +75,10 @@ def _close_l2(got, want, tol=TOL_BF16):
 
 
 def _same_config(mine, theirs):
-    """Every field of the port's LMConfig equals repro's (the MoEConfig field
-    by field, the dtype by name); repro has only its training fields more."""
+    """The port's LMConfig has repro's fields, and every one equals repro's
+    (the MoEConfig field by field, the dtype by name)."""
     names = {f.name for f in dataclasses.fields(mine)}
-    assert {f.name for f in dataclasses.fields(theirs)} - names == DROPPED
+    assert {f.name for f in dataclasses.fields(theirs)} == names
     for name in names:
         a, b = getattr(mine, name), getattr(theirs, name)
         if name == "dtype":
