@@ -261,6 +261,32 @@ Phases, each printed as one JSON line:
    before, the peak memory under the card's; it prints per-step seconds,
    tokens/s, the model-FLOP rate (6 · ``n_active`` · tokens), the peak
    memory and one profiled step's busy share and top kernels.
+13. GNN and recsys families — gcn-cora, graphsage-reddit, schnet,
+   graphcast and din at their published ``CFG``s in fp32 (message passing
+   on ``index_select`` / ``index_add``, embedding lookups, ``torch.matmul``;
+   no kernel of K1–K9 runs: every launch count must stay 0).  13a: each
+   GNN on ``full_graph_sm`` (3,072 nodes, 10,752 edges, d_feat 1,433) and
+   DIN at 512 rows, parameters drawn once on the CPU and copied to the
+   card: the forward and the loss within 1e-5 of the CPU's largest
+   magnitude, every gradient leaf within 1e-4 of its largest, the
+   parameters after one AdamW step within 1e-5 in relative L2, and a second
+   card run against the first within the same tolerances (graphcast's 16
+   processor layers with each gradient leaf within 1e-2 of its largest,
+   and a TF32 control run printed beside it); then
+   ``repro_torch.launch.train.main`` on each id prints a finite smoke loss.
+   13b: gcn-cora and graphsage-reddit on ``ogb_products`` (2,449,408 nodes,
+   61,859,328 edges), schnet and graphcast on ``minibatch_lg`` (169,984
+   nodes, a 232,976-row feature table; ``ogb_products`` would need 74 /
+   60 GB for one tensor), 3 AdamW steps on one batch: finite losses, the
+   last below the first, the peak under the card's memory; it prints
+   seconds per step, the model-FLOP rate (3 · ``fwd_flops``), the peak
+   memory and the busy share and top kernels of the fullest of three
+   profiled steps.  13c: DIN's
+   ``train_batch`` (65,536 rows, 3 steps, the loss falls), ``serve_p99``
+   (512 rows, median and p99 ms of 50 calls), ``serve_bulk`` (262,144
+   rows, rows/s) and ``retrieval_cand`` (one user against 262,144
+   candidates, a quarter of the cell's 1,000,000, then top 1,000; 64
+   sampled candidates equal pointwise ``score`` within 1e-5).
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -387,6 +413,47 @@ TRAIN_FULL_OPT = dict(lr=3e-4, warmup_steps=1, total_steps=8)
 # last is held below the first plus this margin, and the first batch's loss
 # evaluated again after training is held below its loss before
 TRAIN_FULL_LOSS_SPREAD = 0.05
+# phase 13, the GNN and recsys families, every model at its published CFG
+# (fp32; no kernel of K1–K9 runs: every launch count must stay 0).  13a: each
+# GNN on gnn_shapes()'s FAM_CHECK_CELL and DIN at FAM_CHECK_DIN_BATCH rows,
+# parameters drawn once on the CPU (FAM_SEED) and copied to the card, the
+# batch from seed FAM_SEED: the forward and the loss within FAM_TOL of the
+# CPU's largest magnitude, every gradient leaf within FAM_GRAD_TOL of the
+# leaf's largest, the parameters after one AdamW step (OPT) within FAM_TOL
+# in relative L2; a second card run against the first within the same
+# tolerances (index_add's fp32 atomics vary in the last bits).  graphcast's
+# gradient leaves are held to FAM_DEEP_GRAD_TOL instead: with random weights
+# its activations grow ~4-8x a layer (its loss is ~1e8 at 16 layers), and
+# ulp-level differences of the atomic sums flip near-ties of a saturated
+# softmax, so the card's own repeat differed by up to 3.2e-3 of a gradient
+# leaf's largest on an H100 (g2m_edge_w0), while its forward, loss and
+# parameters stayed within FAM_TOL.  A control run of graphcast on the card
+# with TF32 products shows what a real loss of precision reads there; it is
+# printed, not gated.  Then repro_torch.launch.train.main(["--arch", id,
+# "--device", "cuda"]) for each id.  13b: each GNN FAM_STEPS AdamW steps
+# (OPT) on one batch at its FAM_CELLS cell (the largest the card holds; the
+# reason for a smaller one beside it), then FAM_PROFILES profiled steps.  13c:
+# DIN's train_batch (DIN_TRAIN rows, DIN_STEPS steps on one batch), serve_p99
+# (DIN_P99 rows, DIN_P99_CALLS timed calls), serve_bulk (DIN_BULK rows) and
+# retrieval_cand (one user against DIN_RETRIEVAL candidates and torch.topk(·,
+# DIN_TOPK); DIN_RETRIEVAL_CHECK sampled candidates against pointwise
+# ``score``).  The cell's 1,000,000 candidates (DIN_RETRIEVAL_CELL) would need
+# ~168 GB: a candidate took 168 kB of temporaries on an H100.
+FAM_GNNS = ("gcn_cora", "graphsage_reddit", "schnet", "graphcast")
+FAM_CHECK_CELL = "full_graph_sm"
+FAM_CHECK_DIN_BATCH = 512
+FAM_SEED = 0
+FAM_TOL = 1e-5
+FAM_GRAD_TOL = 1e-4
+FAM_DEEP_GRAD_TOL = 1e-2
+FAM_CELLS = {"gcn_cora": "ogb_products", "graphsage_reddit": "ogb_products",
+             "schnet": "minibatch_lg", "graphcast": "minibatch_lg"}
+FAM_STEPS = 3
+FAM_PROFILES = 3
+DIN_TRAIN, DIN_STEPS = 65536, 3
+DIN_P99, DIN_P99_CALLS = 512, 50
+DIN_BULK, DIN_BULK_CALLS = 262144, 3
+DIN_RETRIEVAL_CELL, DIN_RETRIEVAL, DIN_TOPK, DIN_RETRIEVAL_CHECK = 1_000_000, 262_144, 1000, 64
 # phase 7, the dynamic path: benchmarks/bench_incremental.py's regime at the
 # size of PPIS32's largest target (a power-law target of N_T nodes, average
 # degree 4, 4 node labels, one edge label), its pattern rule (a 4-edge
@@ -4757,6 +4824,435 @@ def run_train_path(device, smi: str) -> dict:
     return full
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the GNN and recsys families
+# ---------------------------------------------------------------------------
+
+def _fam_compare(a: dict, b: dict) -> dict:
+    """Run ``a`` against run ``b`` (the reference): the forward and the loss
+    over the reference's largest magnitude, each gradient leaf over its own
+    largest, the parameters after the step in relative L2."""
+    grad = {k: _rel_err(a["grads"][k], g, floor=1e-30) for k, g in b["grads"].items()}
+    return dict(forward_err=_rel_err(a["out"], b["out"], floor=1e-30),
+                loss_err=abs(a["loss"] - b["loss"]) / max(1e-30, abs(b["loss"])),
+                grad_err=max(grad.values()), grad_err_leaf=max(grad, key=grad.get),
+                param_rel_l2=_tree_rel_l2(a["params"], b["params"]))
+
+
+def _fam_ok(cmp: dict, grad_tol: float) -> bool:
+    return (max(cmp["forward_err"], cmp["loss_err"], cmp["param_rel_l2"]) <= FAM_TOL
+            and cmp["grad_err"] <= grad_tol)
+
+
+def family_card_vs_cpu(device, label: str, specs, loss_fn, fwd_fn, batch_cpu, opt_cfg,
+                       grad_tol: float = FAM_GRAD_TOL, tf32_control: bool = False) -> dict:
+    """13a for one model: the forward (no gradients), the loss and every
+    gradient, and one AdamW step, from parameters drawn once on the CPU, on
+    the CPU and twice on the card; with ``tf32_control``, once more on the
+    card with TF32 products, compared with the CPU and printed."""
+    import torch
+
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+
+    init = init_from_specs(specs, FAM_SEED, "cpu")
+
+    def run(dev) -> dict:
+        params = {k: v.to(dev, copy=True) for k, v in init.items()}
+        batch = {k: v.to(dev) for k, v in batch_cpu.items()}
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fwd_fn(params, batch).cpu()
+        step = make_train_step(loss_fn, opt_cfg)
+        grads, metrics = step.grads(params, batch)
+        loss = float(metrics["loss_total"])
+        grads_cpu = {k: g.cpu() for k, g in grads.items()}
+        step.apply(params, opt.init(params), grads, metrics)
+        res = dict(out=out, loss=loss, grads=grads_cpu,
+                   params={k: p.cpu() for k, p in params.items()},
+                   seconds=time.perf_counter() - t0)
+        del params, batch, grads
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        return res
+
+    runs = {key: run(dev) for key, dev in (("cpu", torch.device("cpu")), ("card", device),
+                                           ("card2", device))}
+    vs_cpu = _fam_compare(runs["card"], runs["cpu"])
+    spread = _fam_compare(runs["card2"], runs["card"])
+    res = dict(model=label, loss_card=runs["card"]["loss"], loss_cpu=runs["cpu"]["loss"],
+               card_vs_cpu=vs_cpu, card_vs_card=spread, tol=FAM_TOL, grad_tol=grad_tol,
+               cpu_s=runs["cpu"]["seconds"], card_s=runs["card"]["seconds"],
+               ok=_fam_ok(vs_cpu, grad_tol) and _fam_ok(spread, grad_tol))
+    if tf32_control:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            res["tf32_control_vs_cpu"] = _fam_compare(run(device), runs["cpu"])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    return res
+
+
+def family_checks(device) -> list:
+    """13a: every GNN at CFG on ``FAM_CHECK_CELL`` and DIN at CFG on
+    ``FAM_CHECK_DIN_BATCH`` rows, the card against the CPU."""
+    import importlib
+
+    import torch
+
+    from repro_torch.configs import din as din_cfg
+    from repro_torch.configs import gnn_common
+    from repro_torch.models.recsys import din as din_mod
+
+    shape = gnn_common.gnn_shapes()[FAM_CHECK_CELL]
+    out = []
+    for name in FAM_GNNS:
+        md = importlib.import_module(f"repro_torch.configs.{name}").MODEL
+        arrays = gnn_common.batch_arrays(shape, md.with_positions, md.with_mesh, seed=FAM_SEED)
+        deep = name == "graphcast"
+        res = family_card_vs_cpu(
+            device, md.name, md.param_specs(md.cfg, shape.d_feat, shape.d_out),
+            gnn_common.task_loss(lambda p, b, f=md.forward, c=md.cfg: f(p, c, b), shape),
+            lambda p, b, f=md.forward, c=md.cfg: f(p, c, b),
+            {k: torch.from_numpy(v) for k, v in arrays.items()}, gnn_common.OPT,
+            grad_tol=FAM_DEEP_GRAD_TOL if deep else FAM_GRAD_TOL, tf32_control=deep)
+        res.update(cell=FAM_CHECK_CELL, nodes=shape.n_nodes, edges=shape.n_edges,
+                   d_feat=shape.d_feat, d_out=shape.d_out,
+                   n_layers=getattr(md.cfg, "n_layers", None))
+        out.append(res)
+    cfg = din_cfg.CFG
+    res = family_card_vs_cpu(
+        device, "din", din_mod.param_specs(cfg), lambda p, b: din_mod.loss_fn(p, cfg, b),
+        lambda p, b: din_mod.score(p, cfg, b),
+        din_cfg.batch_tensors(cfg, FAM_CHECK_DIN_BATCH, seed=FAM_SEED, device="cpu"),
+        din_cfg.OPT)
+    res.update(batch=FAM_CHECK_DIN_BATCH)
+    out.append(res)
+    return out
+
+
+_SMOKE_LINE = re.compile(r"^\[train\] (\S+) smoke: \{'loss': (\S+)\}$", re.M)
+
+
+def family_driver(device) -> list:
+    """13a: ``repro_torch.launch.train.main`` on each GNN and recsys id on
+    the card: each prints a finite smoke loss."""
+    import io
+    import math
+
+    from repro_torch.launch import train as launch
+
+    runs = []
+    for arch in launch.SMOKE_ARCHS:
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = launch.main(["--arch", arch, "--device", "cuda"])
+        m = _SMOKE_LINE.search(buf.getvalue())
+        loss = float(m.group(2)) if m and m.group(1) == arch else None
+        runs.append(dict(arch=arch, rc=rc, loss=loss, seconds=time.perf_counter() - t0,
+                         ok=rc == 0 and loss is not None and math.isfinite(loss)))
+    return runs
+
+
+def _memory_gb(device) -> dict:
+    import torch
+
+    return dict(peak_memory_gb=torch.cuda.max_memory_allocated(device) / 1e9,
+                card_memory_gb=torch.cuda.get_device_properties(device).total_memory / 1e9)
+
+
+def _train_steps(step, params, state, batch, n: int, device) -> Tuple[list, list]:
+    """``n`` steps on ``batch``: their losses and seconds (each ended by a
+    device sync)."""
+    import torch
+
+    losses, secs = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        _, _, m = step(params, state, batch)
+        losses.append(float(m["loss_total"]))
+        torch.cuda.synchronize(device)
+        secs.append(time.perf_counter() - t0)
+    return losses, secs
+
+
+def gnn_full_width(device, smi: str, name: str, arrays_of) -> dict:
+    """13b: GNN ``name`` at its published CFG on its ``FAM_CELLS`` cell,
+    ``FAM_STEPS`` AdamW steps (OPT) on one batch, then ``FAM_PROFILES``
+    steps profiled.  Gates: finite losses, the last below the first, the peak
+    under the card's memory."""
+    import importlib
+    import math
+
+    import torch
+
+    from repro_torch.configs import gnn_common
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+
+    mod = importlib.import_module(f"repro_torch.configs.{name}")
+    md, cfg = mod.MODEL, mod.MODEL.cfg
+    cell = FAM_CELLS[name]
+    shapes = gnn_common.gnn_shapes()
+    shape = shapes[cell]
+    reduced = [f"random weights (seed {FAM_SEED}), synthetic batch (seed {FAM_SEED})",
+               f"{FAM_STEPS} steps on one batch"]
+    if cell != "ogb_products":
+        big = shapes["ogb_products"]
+        need = (big.n_edges * cfg.n_rbf * 4 if name == "schnet"
+                else 4 * big.n_nodes * 3 * cfg.d_hidden * 4)
+        what = ("the [E, n_rbf] fp32 RBF" if name == "schnet"
+                else "the g2m edge MLP's [4n, 3d] fp32 input")
+        reduced.append(f"cell ogb_products -> {cell}: {what} alone is {need / 1e9:.1f} GB there")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in arrays_of(cell, md.with_positions, md.with_mesh).items()}
+    params = init_from_specs(md.param_specs(cfg, shape.d_feat, shape.d_out), FAM_SEED, device)
+    state = opt.init(params)
+    torch.cuda.synchronize(device)
+    setup_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated(device) / 1e9
+    step = make_train_step(gnn_common.task_loss(lambda p, b: md.forward(p, cfg, b), shape),
+                           gnn_common.OPT)
+    (losses, step_s), counts = _launched(
+        lambda: _train_steps(step, params, state, batch, FAM_STEPS, device))
+    mem = _memory_gb(device)
+    steady = statistics.median(step_s[1:])
+    flops = 3.0 * mod.fwd_flops(cfg, shape)
+    profile, pcounts = _launched(lambda: _profile_steps(lambda: step(params, state, batch)))
+    _add(counts, pcounts)
+    res = dict(model=md.name, cell=cell, nodes=shape.n_nodes, edges=shape.n_edges,
+               d_feat=shape.d_feat, d_out=shape.d_out, task=shape.task,
+               table_nodes=shape.table_nodes, cfg=str(cfg), reduced=reduced,
+               params=sum(p.numel() for p in params.values()), setup_s=setup_s,
+               losses=losses, step_s=step_s, steady_step_s=steady,
+               model_flops_per_step=flops, model_tflop_per_s=flops / steady / 1e12,
+               state_gb=state_gb, **mem, launches=counts, profile=profile, nvidia_smi=smi)
+    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                 and mem["peak_memory_gb"] < mem["card_memory_gb"])
+    del params, state, batch, step
+    torch.cuda.empty_cache()
+    return res
+
+
+def _profile_steps(fn, n: int = FAM_PROFILES) -> dict:
+    """``profile_call`` of ``n`` separate calls of ``fn``: the one that traced
+    the most device time, and every call's busy share beside it.  A trace
+    can lose kernels and read low (one step of gcn-cora read 49 %, 99 % and
+    50 % busy in three traces on an H100, its profiled wall time within 1 %
+    of the unprofiled step's), but it adds none."""
+    runs = [profile_call(fn) for _ in range(n)]
+    if any("device_busy_s" not in r for r in runs):
+        return runs[0]
+    return dict(max(runs, key=lambda r: r["device_busy_s"]),
+                busy_shares=[r["device_busy_share"] for r in runs])
+
+
+def _timed_calls(fn, n: int, device, warmup: int = 1) -> list:
+    """Seconds of ``n`` calls of ``fn``, each ended by a device sync."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize(device)
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(device)
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def din_full_width(device, smi: str) -> dict:
+    """13c: DIN at its published CFG: ``train_batch`` (``DIN_STEPS`` AdamW
+    steps on one batch of ``DIN_TRAIN`` rows, then ``FAM_PROFILES`` profiled),
+    ``serve_p99``, ``serve_bulk`` and ``retrieval_cand``.  Gates: the
+    training loss falls, finite scores, the peak under the card's memory,
+    the retrieval's sampled candidates equal to pointwise ``score``, its
+    top-k the largest scores."""
+    import math
+
+    import torch
+
+    from repro_torch.configs import din as din_cfg
+    from repro_torch.models.common import init_from_specs
+    from repro_torch.models.recsys import din as din_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = din_cfg.CFG
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = init_from_specs(din_mod.param_specs(cfg), FAM_SEED, device)
+    state = opt.init(params)
+    batch = din_cfg.batch_tensors(cfg, DIN_TRAIN, seed=FAM_SEED, device=device)
+    torch.cuda.synchronize(device)
+    state_gb = torch.cuda.memory_allocated(device) / 1e9
+    step = make_train_step(lambda p, b: din_mod.loss_fn(p, cfg, b), din_cfg.OPT)
+    losses, step_s = _train_steps(step, params, state, batch, DIN_STEPS, device)
+    train_mem = _memory_gb(device)
+    profile = _profile_steps(lambda: step(params, state, batch))
+    flops = 3.0 * din_cfg._score_flops(cfg, DIN_TRAIN)
+    steady = statistics.median(step_s[1:])
+    train = dict(batch=DIN_TRAIN, losses=losses, step_s=step_s, steady_step_s=steady,
+                 rows_per_s=DIN_TRAIN / steady, model_flops_per_step=flops,
+                 model_tflop_per_s=flops / steady / 1e12, state_gb=state_gb,
+                 **train_mem, profile=profile)
+    del state, batch, step
+    torch.cuda.empty_cache()
+
+    def score_fn(b):
+        return lambda: din_mod.score(params, cfg, b)
+
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats(device)
+        p99_batch = din_cfg.batch_tensors(cfg, DIN_P99, seed=FAM_SEED + 1, device=device)
+        p99_batch.pop("click")
+        p99_s = _timed_calls(score_fn(p99_batch), DIN_P99_CALLS, device, warmup=3)
+        p99_scores = din_mod.score(params, cfg, p99_batch)
+        serve_p99 = dict(batch=DIN_P99, calls=DIN_P99_CALLS,
+                         median_ms=statistics.median(p99_s) * 1e3,
+                         p99_ms=sorted(p99_s)[math.ceil(0.99 * len(p99_s)) - 1] * 1e3,
+                         finite=bool(torch.isfinite(p99_scores).all()))
+        bulk = din_cfg.batch_tensors(cfg, DIN_BULK, seed=FAM_SEED + 2, device=device)
+        bulk.pop("click")
+        bulk_s = _timed_calls(score_fn(bulk), DIN_BULK_CALLS, device)
+        bulk_scores = din_mod.score(params, cfg, bulk)
+        serve_bulk = dict(batch=DIN_BULK, seconds=bulk_s,
+                          rows_per_s=DIN_BULK / statistics.median(bulk_s),
+                          model_tflop_per_s=din_cfg._score_flops(cfg, DIN_BULK)
+                          / statistics.median(bulk_s) / 1e12,
+                          finite=bool(torch.isfinite(bulk_scores).all()), **_memory_gb(device))
+        del bulk, bulk_scores
+        torch.cuda.empty_cache()
+        retrieval = din_retrieval(device, params, cfg, p99_batch)
+    res = dict(model="din", cfg=str(cfg), params=sum(p.numel() for p in params.values()),
+               train_batch=train, serve_p99=serve_p99, serve_bulk=serve_bulk,
+               retrieval_cand=retrieval, nvidia_smi=smi,
+               reduced=[f"random weights (seed {FAM_SEED}), synthetic batches (din_batch seeds "
+                        f"{FAM_SEED}-{FAM_SEED + 2})", f"{DIN_STEPS} steps on one batch"]
+               + retrieval["reduced"])
+    res["ok"] = (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+                 and train["peak_memory_gb"] < train["card_memory_gb"]
+                 and serve_p99["finite"] and serve_bulk["finite"]
+                 and serve_bulk["peak_memory_gb"] < serve_bulk["card_memory_gb"]
+                 and retrieval["ok"])
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+def din_retrieval(device, params, cfg, batch) -> dict:
+    """``retrieval_cand``: the user of ``batch``'s first row against
+    ``DIN_RETRIEVAL`` random candidates, then ``torch.topk``.  Gated:
+    ``DIN_RETRIEVAL_CHECK`` sampled candidates' scores against pointwise
+    ``score`` of the same (user, item) pairs within ``FAM_TOL`` of their
+    largest magnitude; the top-k values the largest scores, in order; the
+    peak under the card's memory."""
+    import torch
+
+    from repro_torch.models.recsys import din as din_mod
+
+    user = {k: batch[k][:1] for k in ("hist_items", "hist_cats", "hist_len", "dense")}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(FAM_SEED + 3)
+    nc = DIN_RETRIEVAL
+    b = dict(user, cand_items=torch.randint(0, cfg.n_items, (nc,), generator=gen,
+                                            device=device, dtype=torch.int32),
+             cand_cats=torch.randint(0, cfg.n_cats, (nc,), generator=gen,
+                                     device=device, dtype=torch.int32))
+
+    def retrieve():
+        scores = din_mod.score_candidates(params, cfg, b)
+        return scores, torch.topk(scores, min(DIN_TOPK, scores.shape[0]))
+
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    secs = _timed_calls(retrieve, 3, device)
+    scores, (top_v, top_i) = retrieve()
+    mem = _memory_gb(device)
+    per_cand = (torch.cuda.max_memory_allocated(device) - base) / nc
+    reduced = [f"candidates {DIN_RETRIEVAL_CELL:,} -> {nc:,}: {per_cand:.0f} bytes of "
+               f"temporaries per candidate would need {DIN_RETRIEVAL_CELL * per_cand / 1e9:.1f} GB"]
+    pick = torch.randperm(nc, generator=gen, device=device)[:DIN_RETRIEVAL_CHECK]
+    n = len(pick)
+    point = din_mod.score(params, cfg, {
+        "hist_items": user["hist_items"].expand(n, -1).contiguous(),
+        "hist_cats": user["hist_cats"].expand(n, -1).contiguous(),
+        "hist_len": user["hist_len"].expand(n).contiguous(),
+        "dense": user["dense"].expand(n, -1).contiguous(),
+        "target_item": b["cand_items"][pick], "target_cat": b["cand_cats"][pick]})
+    err = _rel_err(scores[pick], point, floor=1e-30)
+    kth = float(torch.kthvalue(scores.float().cpu(), nc - len(top_v) + 1).values)
+    top_ok = (bool(torch.equal(top_v, scores[top_i])) and bool((top_v[:-1] >= top_v[1:]).all())
+              and float(top_v[-1]) >= kth)
+    res = dict(candidates=nc, topk=len(top_v), bytes_per_candidate=per_cand, seconds=secs,
+               median_ms=statistics.median(secs) * 1e3,
+               candidates_per_s=nc / statistics.median(secs), **mem,
+               pointwise_err=err, pointwise_checked=n, tol=FAM_TOL,
+               topk_ok=top_ok, finite=bool(torch.isfinite(scores).all()), reduced=reduced)
+    res["ok"] = (err <= FAM_TOL and top_ok and res["finite"]
+                 and mem["peak_memory_gb"] < mem["card_memory_gb"])
+    return res
+
+
+def run_family_path(device, smi: str) -> dict:
+    """Phase 13: 13a the card against the CPU and the driver's smokes, 13b
+    the GNNs at full width, 13c DIN at full width.  No kernel of K1–K9 runs
+    (every launch count must stay 0)."""
+    from repro_torch.configs import gnn_common
+
+    t_phase = time.perf_counter()
+    checks, counts = _launched(lambda: family_checks(device))
+    driver, dcounts = _launched(lambda: family_driver(device))
+    _add(counts, dcounts)
+    emit(dict(phase="family_card_vs_cpu", cases=checks, driver=driver, launches=counts,
+              nvidia_smi=smi, seconds=time.perf_counter() - t_phase))
+    cache = {}
+
+    def arrays_of(cell, pos, mesh):  # gcn and graphsage share ogb_products' batch
+        key = (cell, pos, mesh)
+        if key not in cache:
+            cache.clear()
+            cache[key] = gnn_common.batch_arrays(gnn_common.gnn_shapes()[cell], pos, mesh,
+                                                 seed=FAM_SEED)
+        return cache[key]
+
+    full = []
+    for name in FAM_GNNS:
+        res = gnn_full_width(device, smi, name, arrays_of)
+        emit(dict(phase="family_gnn_full_width", **res))
+        full.append(res)
+    cache.clear()
+    din, din_counts = _launched(lambda: din_full_width(device, smi))
+    emit(dict(phase="family_din_full_width", **din, launches=din_counts))
+    launched = {k: v for c in [counts, din_counts] + [r["launches"] for r in full]
+                for k, v in c.items() if v}
+    emit(dict(phase="family_done", launches=launched, nvidia_smi=smi,
+              family_path_s=time.perf_counter() - t_phase))
+    if not all(c["ok"] for c in checks):
+        raise AssertionError(f"the GNN / recsys families on the card != on the CPU: "
+                             f"{[c for c in checks if not c['ok']]}")
+    if not all(r["ok"] for r in driver):
+        raise AssertionError(f"the training driver's smokes failed: {driver}")
+    if not all(r["ok"] for r in full):
+        raise AssertionError(f"a GNN at full width failed its gates: "
+                             f"{[r['model'] for r in full if not r['ok']]}")
+    if not din["ok"]:
+        raise AssertionError(f"DIN at full width failed its gates: {din}")
+    if launched:
+        raise AssertionError(f"the GNN / recsys path launched kernels: {launched}")
+    return din
+
+
 def main() -> int:
     try:
         import torch
@@ -4857,6 +5353,8 @@ def main() -> int:
         timing["flash_attention"][f"{key}_shape"] = t["shape"]
 
     run_train_path(device, smi)
+
+    run_family_path(device, smi)
 
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",

@@ -8,8 +8,15 @@
   nemotron_4_15b  — dense, squared ReLU
   stablelm_12b    — dense, SwiGLU, head width 160
   overrides       — ``path.to.field=value`` assignments on a config
+  gnn_common      — the GNN shapes (``gnn_shapes``), synthetic batches
+                    (``batch_concrete``), the task losses and ``gnn_smoke``
+  gcn_cora, graphsage_reddit, schnet, graphcast
+                  — the GNNs: ``CFG``, ``fwd_flops``, ``MODEL`` and
+                    ``smoke(device)``
+  din             — the recsys model: ``CFG``, ``SMOKE_CFG``, ``OPT``,
+                    ``_score_flops`` and ``smoke(device)``
 
-Each LM module holds ``CFG`` and a CPU-sized ``SMOKE``.  The registry, the
-cell builders, the GNN and recsys configurations and the dry-run are not
-ported yet (ROADMAP Queue 1 item 14).
+Each LM module holds ``CFG`` and a CPU-sized ``SMOKE``; schnet and
+graphcast have a ``SMOKE`` too.  The registry and its cell builders, the
+dry-run and ``sge`` are not ported yet (ROADMAP Queue 1 items 14.3–14.5).
 """

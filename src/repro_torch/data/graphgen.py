@@ -1,11 +1,13 @@
-"""Synthetic SGE collections and LM tokens: a copy of
-``repro.data.graphgen``'s graph half (``random_graph``, ``power_law_graph``,
-``extract_pattern``, ``make_collection``) and of its ``lm_batch``.
+"""Synthetic SGE collections and model inputs: a copy of
+``repro.data.graphgen`` (``random_graph``, ``power_law_graph``,
+``extract_pattern``, ``make_collection``; ``gnn_batch``, the GraphCast
+``mesh_overlay`` and its shapes, ``lm_batch``, ``din_batch``,
+``icosa_mesh_shape``), all numpy.
 
 Scaled analogues of the paper's three data sets (Table 1), with patterns
 extracted as connected subgraphs (so each has at least one match), sized by
-edge count as in the paper.  Same seeds, same graphs as ``repro``: the tests
-and ``chip_smoke.py`` rely on that.
+edge count as in the paper.  Same seeds, same graphs and arrays as
+``repro``: the tests and ``chip_smoke.py`` rely on that.
 """
 
 from __future__ import annotations
@@ -222,3 +224,116 @@ def lm_batch(batch: int, seq: int, vocab: int, seed: int = 0) -> Dict[str, np.nd
     toks = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
     labels = np.concatenate([toks[:, 1:], np.full((batch, 1), -1, np.int32)], axis=1)
     return {"tokens": toks, "labels": labels}
+
+
+# ---------------------------------------------------------------------------
+# model-input synthesis (GNN, GraphCast mesh, DIN)
+# ---------------------------------------------------------------------------
+
+def gnn_batch(
+    n_nodes: int,
+    n_edges: int,
+    d_feat: int,
+    n_classes: int = 0,
+    with_positions: bool = False,
+    n_graphs: int = 1,
+    seed: int = 0,
+) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    out: Dict[str, np.ndarray] = {
+        "feats": rng.normal(size=(n_nodes, d_feat)).astype(np.float32),
+        "src": rng.integers(0, n_nodes, n_edges).astype(np.int32),
+        "dst": rng.integers(0, n_nodes, n_edges).astype(np.int32),
+    }
+    if n_classes > 0:
+        out["labels"] = rng.integers(0, n_classes, n_nodes).astype(np.int32)
+    if with_positions:
+        out["positions"] = rng.normal(size=(n_nodes, 3)).astype(np.float32) * 3.0
+    if n_graphs > 1:
+        per = n_nodes // n_graphs
+        out["graph_ids"] = np.minimum(np.arange(n_nodes) // per, n_graphs - 1).astype(np.int32)
+        out["graph_targets"] = rng.normal(size=(n_graphs, 1)).astype(np.float32)
+        out.pop("labels", None)
+    return out
+
+
+def mesh_overlay_shapes(
+    n_nodes: int, d_edge: int = 4, fanout: int = 4
+) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """Shape/dtype spec of the GraphCast mesh hierarchy (no allocation)."""
+    nm = max(8, n_nodes // 4)
+    eg2m = n_nodes * fanout
+    em = nm * 8
+    em2g = n_nodes * fanout
+    return {
+        "mesh_feats": ((nm, d_edge), "float32"),
+        "g2m_src": ((eg2m,), "int32"),
+        "g2m_dst": ((eg2m,), "int32"),
+        "g2m_efeats": ((eg2m, d_edge), "float32"),
+        "mesh_src": ((em,), "int32"),
+        "mesh_dst": ((em,), "int32"),
+        "mesh_efeats": ((em, d_edge), "float32"),
+        "m2g_src": ((em2g,), "int32"),
+        "m2g_dst": ((em2g,), "int32"),
+        "m2g_efeats": ((em2g, d_edge), "float32"),
+    }
+
+
+MESH_OVERLAY_LOGICAL = {
+    "mesh_feats": ("batch", None),
+    "g2m_src": ("edge",),
+    "g2m_dst": ("edge",),
+    "g2m_efeats": ("edge", None),
+    "mesh_src": ("edge",),
+    "mesh_dst": ("edge",),
+    "mesh_efeats": ("edge", None),
+    "m2g_src": ("edge",),
+    "m2g_dst": ("edge",),
+    "m2g_efeats": ("edge", None),
+}
+
+
+def mesh_overlay(
+    n_nodes: int, d_edge: int = 4, fanout: int = 4, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """Synthetic mesh hierarchy for GraphCast-style cells: mesh nodes a
+    quarter of the grid's, fanout-4 bipartite edges."""
+    rng = np.random.default_rng(seed)
+    nm = max(8, n_nodes // 4)
+    eg2m = n_nodes * fanout
+    em = nm * 8
+    em2g = n_nodes * fanout
+    return {
+        "mesh_feats": rng.normal(size=(nm, d_edge)).astype(np.float32),
+        "g2m_src": rng.integers(0, n_nodes, eg2m).astype(np.int32),
+        "g2m_dst": rng.integers(0, nm, eg2m).astype(np.int32),
+        "g2m_efeats": rng.normal(size=(eg2m, d_edge)).astype(np.float32),
+        "mesh_src": rng.integers(0, nm, em).astype(np.int32),
+        "mesh_dst": rng.integers(0, nm, em).astype(np.int32),
+        "mesh_efeats": rng.normal(size=(em, d_edge)).astype(np.float32),
+        "m2g_src": rng.integers(0, nm, em2g).astype(np.int32),
+        "m2g_dst": rng.integers(0, n_nodes, em2g).astype(np.int32),
+        "m2g_efeats": rng.normal(size=(em2g, d_edge)).astype(np.float32),
+    }
+
+
+def din_batch(
+    batch: int, seq_len: int, n_items: int, n_cats: int, d_dense: int, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    rng = np.random.default_rng(seed)
+    return {
+        "hist_items": rng.integers(0, n_items, (batch, seq_len)).astype(np.int32),
+        "hist_cats": rng.integers(0, n_cats, (batch, seq_len)).astype(np.int32),
+        "hist_len": rng.integers(1, seq_len + 1, batch).astype(np.int32),
+        "target_item": rng.integers(0, n_items, batch).astype(np.int32),
+        "target_cat": rng.integers(0, n_cats, batch).astype(np.int32),
+        "dense": rng.normal(size=(batch, d_dense)).astype(np.float32),
+        "click": rng.integers(0, 2, batch).astype(np.int32),
+    }
+
+
+def icosa_mesh_shape(refinement: int) -> Tuple[int, int]:
+    """(n_mesh_nodes, n_mesh_edges_directed) of an icosahedral refinement."""
+    n = 10 * 4**refinement + 2
+    e = 2 * (30 * 4**refinement)
+    return n, e

@@ -1,7 +1,8 @@
-"""End-to-end LM training driver on the port (a port of ``repro.launch.train``).
+"""End-to-end training driver on the port (a port of ``repro.launch.train``).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 20 --ckpt-dir DIR
+  PYTHONPATH=src python -m repro_torch.launch.train --arch graphcast --device cpu
 
 ``--smoke`` (on by default, as in ``repro``) trains the architecture's
 reduced ``SMOKE`` config on synthetic token streams; ``--set`` overrides
@@ -9,10 +10,12 @@ its fields (`repro_torch.configs.overrides`).  With ``--ckpt-dir`` the loop
 checkpoints there and a later run on the same directory resumes from its
 newest checkpoint.  It runs on ``--device`` (default: the CUDA card).
 
-The registry is not ported: an LM architecture id names its config module
-(``minitron-8b`` → `repro_torch.configs.minitron_8b`), as ``repro``'s driver
-imports it.  The GNN and recsys architectures, and the paper's own ``sge``
-workload, are refused.
+The registry is not ported: an architecture id names its config module
+(``minitron-8b`` → `repro_torch.configs.minitron_8b`).  A GNN or recsys id
+(``gcn-cora``, ``graphsage-reddit``, ``schnet``, ``graphcast``, ``din``)
+runs that module's ``smoke(device)`` — one train step on synthetic data —
+and prints ``[train] <id> smoke: {...}``, as ``repro``'s driver does for
+its non-LM architectures.  The paper's own ``sge`` workload is refused.
 """
 
 from __future__ import annotations
@@ -33,14 +36,8 @@ from repro_torch.train.trainer import LoopConfig, TrainLoop, make_train_step
 from repro_torch.train.tree import tree_map
 
 LM_ARCHS = ("grok-1-314b", "kimi-k2-1t-a32b", "nemotron-4-15b", "minitron-8b", "stablelm-12b")
-NOT_PORTED = {
-    "gcn-cora": "ROADMAP Queue 1 item 14.2",
-    "graphsage-reddit": "ROADMAP Queue 1 item 14.2",
-    "schnet": "ROADMAP Queue 1 item 14.2",
-    "graphcast": "ROADMAP Queue 1 item 14.2",
-    "din": "ROADMAP Queue 1 item 14.2",
-    "sge": "ROADMAP Queue 1 item 14.5",
-}
+SMOKE_ARCHS = ("gcn-cora", "graphsage-reddit", "schnet", "graphcast", "din")
+NOT_PORTED = {"sge": "ROADMAP Queue 1 item 14.5"}
 
 
 def lm_data_iterator(cfg: tf.LMConfig, batch: int, seq: int, seed: int = 0,
@@ -103,13 +100,14 @@ def train_lm(
     return loop.run(params, opt_state, data)
 
 
-def lm_config_module(arch: str):
-    """The config module of LM architecture ``arch``."""
+def config_module(arch: str):
+    """The config module of architecture ``arch`` (an LM or a smoke id)."""
     if arch in NOT_PORTED:
         raise NotImplementedError(
             f"{arch!r} is not an LM; its model is not ported yet ({NOT_PORTED[arch]})")
-    if arch not in LM_ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; have {sorted(LM_ARCHS + tuple(NOT_PORTED))}")
+    if arch not in LM_ARCHS + SMOKE_ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; have "
+                       f"{sorted(LM_ARCHS + SMOKE_ARCHS + tuple(NOT_PORTED))}")
     return importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_')}")
 
 
@@ -128,7 +126,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     args = ap.parse_args(argv)
 
-    mod = lm_config_module(args.arch)
+    mod = config_module(args.arch)
+    if args.arch in SMOKE_ARCHS:  # a full train step on synthetic data
+        out = mod.smoke(device=args.device)
+        print(f"[train] {args.arch} smoke: {out}")
+        return 0
     cfg = mod.SMOKE if args.smoke else mod.CFG
     cfg = ov.apply(cfg, args.overrides)
     _, _, history = train_lm(cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, accum=args.accum,

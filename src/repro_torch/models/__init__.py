@@ -1,7 +1,7 @@
-"""Models of the port (a port of ``repro.models``: the LMs).
+"""Models of the port (a port of ``repro.models``).
 
   common      — rms_norm, activations, the matmul in the activation dtype,
-                the parameter initialiser
+                ``ParamSpec`` and the parameter initialisers
   attention   — RoPE, grouped decode attention over a KV cache, blockwise
                 (online-softmax) attention, sliding-window attention
   moe         — top-k routing with group-local sort dispatch over the kept
@@ -10,6 +10,7 @@
                 forward, the chunked loss (lm_loss, loss_fn), prefill
                 (every layer's attention through K9 ``flash_attention``)
                 and decode_step
-
-The GNN and recsys models are not ported yet (ROADMAP Queue 1 item 14).
+  gnn         — message passing over edge lists (index ops, no kernel):
+                GCN, GraphSAGE, SchNet, GraphCast, the neighbour sampler
+  recsys      — embedding lookups and bags, DIN
 """

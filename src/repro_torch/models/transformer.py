@@ -58,7 +58,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -67,7 +66,13 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import apply_rope, blockwise_attention, windowed_attention
-from repro_torch.models.common import ACTIVATIONS, dot, init_param, rms_norm
+from repro_torch.models.common import (  # noqa: F401  (params_from_numpy: kept under this name)
+    ACTIVATIONS,
+    dot,
+    init_param,
+    params_from_numpy,
+    rms_norm,
+)
 
 Cache = Tuple[torch.Tensor, torch.Tensor]
 
@@ -184,27 +189,6 @@ def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     shapes = param_shapes(cfg)
     return {name: ({k: make(s) for k, s in spec.items()} if name == "layers" else make(spec))
             for name, spec in shapes.items()}
-
-
-def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
-    """A parameter tree of numpy arrays (``repro``'s parameters after
-    ``jax.tree.map(np.asarray, params)``) as tensors on ``device`` (the
-    card by default), in ``dtype`` or each array's own; ``router`` keeps its
-    own (fp32) either way, as ``repro`` declares it.  bfloat16 arrays go
-    through fp32, which is exact both ways."""
-    device = resolve_device(device)
-
-    def conv(a, key=None):
-        if isinstance(a, dict):
-            return {k: conv(x, k) for k, x in a.items()}
-        a = np.asarray(a)
-        if a.dtype.name == "bfloat16":
-            t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            t = torch.tensor(a)
-        return t.to(device=device, dtype=t.dtype if key == "router" else dtype or t.dtype)
-
-    return conv(tree)
 
 
 def empty_cache(cfg: LMConfig, batch: int, max_len: Optional[int] = None,

@@ -64,6 +64,13 @@ PORT_MODULES = {
     "repro_torch.train", "repro_torch.train.tree", "repro_torch.train.optimizer",
     "repro_torch.train.trainer", "repro_torch.checkpoint", "repro_torch.checkpoint.store",
     "repro_torch.data.tokens", "repro_torch.launch.train",
+    "repro_torch.models.gnn", "repro_torch.models.gnn.common", "repro_torch.models.gnn.gcn",
+    "repro_torch.models.gnn.sage", "repro_torch.models.gnn.schnet",
+    "repro_torch.models.gnn.graphcast", "repro_torch.models.gnn.sampler",
+    "repro_torch.models.recsys", "repro_torch.models.recsys.embedding",
+    "repro_torch.models.recsys.din", "repro_torch.configs.gnn_common",
+    "repro_torch.configs.gcn_cora", "repro_torch.configs.graphsage_reddit",
+    "repro_torch.configs.schnet", "repro_torch.configs.graphcast", "repro_torch.configs.din",
 }
 
 

@@ -444,12 +444,25 @@ def test_main_on_the_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("arch", ["gcn-cora", "graphsage-reddit", "schnet", "graphcast", "din"])
 def test_non_lm_archs_refused(arch):
-    """Not ported yet (ROADMAP Queue 1 item 14.2); an unknown id is a
-    ``KeyError``, as in ``repro``'s registry."""
-    with pytest.raises(NotImplementedError, match="item 14.2"):
-        launch.main(["--arch", arch, "--device", "cpu"])
+    """An unknown id is a ``KeyError``, as in ``repro``'s registry."""
     with pytest.raises(KeyError, match="unknown arch"):
         launch.main(["--arch", arch + "-x", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", ["gcn-cora", "graphsage-reddit", "schnet", "graphcast", "din"])
+def test_non_lm_archs_run_their_smoke(arch, capsys):
+    """A GNN or recsys id runs its config's smoke (one train step on
+    synthetic data) and prints its finite loss, as ``repro``'s driver does."""
+    assert launch.main(["--arch", arch, "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert out.startswith(f"[train] {arch} smoke: {{'loss': ")
+    assert math.isfinite(float(out.split("'loss': ")[1].rstrip("}")))
+
+
+def test_sge_refused():
+    """The paper's own workload waits for its config (ROADMAP Queue 1 item 14.5)."""
+    with pytest.raises(NotImplementedError, match="item 14.5"):
+        launch.main(["--arch", "sge", "--device", "cpu"])
 
 
 def test_training_entry_points_default_to_the_card():
