@@ -287,6 +287,31 @@ Phases, each printed as one JSON line:
    rows, rows/s) and ``retrieval_cand`` (one user against 262,144
    candidates, a quarter of the cell's 1,000,000, then top 1,000; 64
    sampled candidates equal pointwise ``score`` within 1e-5).
+14. registry — ``repro_torch.configs.registry`` and its cells.  14a: all
+   11 architectures and 44 cells (40 assigned, the five ``long_500k``
+   skipped, plus four ``sge``) built: every argument leaf a meta tensor and
+   the card's allocated memory unchanged; it prints each cell's kind,
+   ``model_flops`` and the bytes its arguments would hold against the
+   card's memory.  14b: the four ``sge`` cells at their exact shapes (n_t
+   12,575, 6,726 and 33,067, w 512, 256 and 1,152 words, 64 positions, 8
+   parents, 64 × 64 lanes) on the first 8-edge pattern of the collection
+   target of each size (phase 3's target, a ``graemlin32-like`` draw, phase
+   5's target A): the dense plan prepared on the target packed to
+   128-word rows through the device fixpoint with K4 and K3, the CSR plan
+   through the CSR-native fixpoint with K8 and K3; one round of the cell's
+   ``fn`` from ``init_state``, the dense cells plain, through K1 and
+   through K2, the CSR cell through K7 (its own round), K6 and plain.
+   Gates: the concrete plan and state have the cell's shapes; every state
+   field equal across the three runs (rings read from their bases); each
+   kernel launched in its run, none in the plain run; K8 and K3 in the CSR
+   prepare.  14c: minitron-8b's ``prefill_32k`` cell through its ``fn`` at
+   full width and depth with the batch cut from 32 to 1: K9 once per layer
+   at S = 32,768 and no other kernel, finite logits, K9 on layer 0's q/k/v
+   against its plain version on three heads (phase 6's bf16 tolerance); it
+   prints tokens/s, peak memory and K9's time at that length beside its
+   bound and ``scaled_dot_product_attention``.  14d:
+   ``repro_torch.launch.train.main(["--arch", "sge"])`` on the card prints
+   ``ref_enumerate``'s matches and states.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -454,6 +479,35 @@ DIN_TRAIN, DIN_STEPS = 65536, 3
 DIN_P99, DIN_P99_CALLS = 512, 50
 DIN_BULK, DIN_BULK_CALLS = 262144, 3
 DIN_RETRIEVAL_CELL, DIN_RETRIEVAL, DIN_TOPK, DIN_RETRIEVAL_CHECK = 1_000_000, 262_144, 1000, 64
+# phase 14, the registry (repro_torch.configs.registry).  14a: every cell
+# built, its arguments meta tensors, the card's memory untouched.  14b: the
+# four sge cells at their exact shapes (n_t, w = round_up(ceil(n_t / 32),
+# 128), P_PAD, MAX_PARENTS, ENGINE's lanes) on one pattern each, the first
+# 8-edge pattern of the collection target of the cell's size (REG_TARGETS;
+# phase 3's and phase 5's targets reused): one round from init_state, the
+# dense cells plain, through K1 and through K2, the CSR cell through K7, K6
+# and plain; every state field equal across the three.  The collections'
+# targets carry 138-381 node labels, so such a query reaches a handful of
+# states and its round is nearly empty; each cell runs again "loaded", on
+# its target with the labels taken mod REG_LOADED_LABELS and an
+# REG_LOADED_EDGES-edge pattern drawn from that (seed REG_LOADED_SEED),
+# whose round keeps the lanes busy.  14c: minitron-8b's
+# prefill_32k cell at REG_PREFILL_BATCH (the cell's batch 32 holds 137 GB of
+# KV cache), K9 on layer 0's q/k/v against its plain version for the heads
+# REG_K9_HEADS (one head's fp32 S x S scores are 4.3 GB) within phase 6's
+# bf16 tolerance.  14d: repro_torch.launch.train.main(["--arch", "sge"]).
+REG_TARGETS = {
+    "sge_ppis32": "main",  # phase 3's target
+    "sge_graemlin32": dict(name="graemlin32-like", pattern_edges=(8,), patterns_per_target=1,
+                           scale=6726 / 500, seed=7, n_targets=1),
+    "sge_pdbsv1": "sparse",  # phase 5's target A
+    "sge_pdbsv1_csr": "sparse",
+}
+REG_LOADED_LABELS, REG_LOADED_EDGES, REG_LOADED_SEED = 4, 8, 11
+REG_PREFILL_BATCH = 1
+REG_PREFILL_SEQ = None  # the cell's 32,768
+REG_K9_HEADS = (0, 13, 31)
+REG_K9_TOL = 2e-2
 # phase 7, the dynamic path: benchmarks/bench_incremental.py's regime at the
 # size of PPIS32's largest target (a power-law target of N_T nodes, average
 # degree 4, 4 node labels, one edge label), its pattern rule (a 4-edge
@@ -1945,7 +1999,7 @@ def run_sparse_path(device):
     insts = [i for i in insts if i.target is target]
     index = SubgraphIndex.build(target, sparse=True)
     SHARED["sparse"] = dict(index=index, patterns=[i.pattern for i in insts],
-                            names=[i.name for i in insts])
+                            names=[i.name for i in insts], target=target)
     planes = index.csr_planes()
     deg = np.diff(planes.indptr, axis=1)
     emit(dict(phase="sparse_setup", target="A", n_t=target.n, arcs=target.m,
@@ -4941,10 +4995,11 @@ def family_driver(device) -> list:
     import io
     import math
 
+    from repro_torch.configs import registry
     from repro_torch.launch import train as launch
 
     runs = []
-    for arch in launch.SMOKE_ARCHS:
+    for arch in [a.name for a in registry.load_all().values() if a.family in ("gnn", "recsys")]:
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -5253,6 +5308,402 @@ def run_family_path(device, smi: str) -> dict:
     return din
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the registry (repro_torch.configs.registry) and its cells
+# ---------------------------------------------------------------------------
+
+def registry_cells(device) -> dict:
+    """14a: every cell of the registry built; every argument leaf must be a
+    meta tensor and the card's allocated memory unchanged.  Prints each
+    cell's kind, ``model_flops`` and the bytes its arguments would hold
+    against the card's memory."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.train.tree import leaves
+
+    card = torch.cuda.get_device_properties(device).total_memory
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    archs = registry.load_all()
+    rows, concrete = [], []
+    t0 = time.perf_counter()
+    for cell in registry.all_cells():
+        row = dict(cell=cell.name, kind=cell.kind)
+        if cell.build is None:
+            rows.append(dict(row, skip_reason=cell.skip_reason))
+            continue
+        b = cell.build()
+        tensors = [x for x in leaves(b.args) if isinstance(x, torch.Tensor)]
+        concrete += [cell.name for x in tensors if not x.is_meta]
+        arg_bytes = sum(x.numel() * x.element_size() for x in tensors if x._base is None)
+        rows.append(dict(row, model_flops=b.model_flops, arg_bytes=arg_bytes,
+                         arg_share_of_card=arg_bytes / card, fits_card=arg_bytes <= card,
+                         donate=list(b.donate), note=b.note))
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    after = torch.cuda.memory_allocated(device)
+    built = [r for r in rows if "skip_reason" not in r]
+    out = dict(archs=len(archs), cells=len(rows), built=len(built),
+               skipped=[r["cell"] for r in rows if "skip_reason" in r],
+               sge=sum(r["cell"].startswith("sge/") for r in rows),
+               card_memory_bytes=card, allocated_before=before, allocated_after=after,
+               build_s=build_s, rows=rows)
+    if (out["archs"], out["cells"], out["built"], out["sge"]) != (11, 44, 39, 4):
+        raise AssertionError(f"the registry has {out['archs']} archs, {out['cells']} cells, "
+                             f"{out['built']} buildable, {out['sge']} sge cells")
+    if concrete or after != before:
+        raise AssertionError(f"a cell build made a concrete tensor: {concrete}, allocated "
+                             f"{before} -> {after} bytes")
+    return out
+
+
+def _ring_read(x, base):
+    """A ``[V, S, ...]`` ring read from each worker's ``base`` (on the card)."""
+    import torch
+
+    s_cap = x.shape[1]
+    idx = (base[:, None] + torch.arange(s_cap, device=x.device)) % s_cap
+    return torch.gather(x, 1, idx.view(idx.shape + (1,) * (x.ndim - 2)).expand_as(x))
+
+
+def _round_state(st) -> dict:
+    """A pack of one's ``EngineState`` fields, rings read from their bases
+    (``base`` itself left out)."""
+    rings = ("st_depth", "st_map", "st_used", "st_cand")
+    return {name: _ring_read(x[0], st.base[0]) if name in rings else x[0]
+            for name, x in zip(st._fields, st) if name != "base"}
+
+
+def registry_round(fn, arrays, plan, cfg, device) -> tuple:
+    """One warm-up round of ``fn`` from ``init_state``, then one from a fresh
+    state with the launch counts set to 0 just before and read just after:
+    (its state fields, seconds, launches)."""
+    import torch
+
+    from repro_torch.core.frontier import init_state
+    from repro_torch.kernels import ops
+
+    fn(arrays, init_state(plan, cfg, device))  # the first use of each op on the card
+    st = init_state(plan, cfg, device)
+    torch.cuda.synchronize(device)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    st = fn(arrays, st)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    return _round_state(st), seconds, ops.launch_counts()
+
+
+def _tensor_shapes(tree) -> list:
+    import torch
+
+    from repro_torch.train.tree import leaves
+
+    return [list(x.shape) for x in leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+def registry_sge_cell(device, name: str, cell, loaded: bool) -> tuple:
+    """14b for one ``sge`` cell: its target and pattern (``loaded``: the
+    target's labels taken mod :data:`REG_LOADED_LABELS` and a pattern drawn
+    from that), the plan at the cell's shapes (prepared through K4 + K3
+    dense, K8 + K3 on CSR planes), and the round three ways.  Returns (the
+    printed row, launches, failed gates)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import sge
+    from repro_torch.core import engine as eng
+    from repro_torch.core import extend
+    from repro_torch.core.domains import compute_domains_device
+    from repro_torch.core.frontier import init_state
+    from repro_torch.core.graph import PackedGraph
+    from repro_torch.core.plan import build_csr_plan, build_plan, variant_flags
+    from repro_torch.data import graphgen
+
+    t0 = time.perf_counter()
+    src = REG_TARGETS[name]
+    if src == "main":
+        target, pattern = SHARED["main"]["target"], SHARED["main"]["patterns"][0].pattern
+    elif src == "sparse":
+        target, pattern = SHARED["sparse"]["target"], SHARED["sparse"]["patterns"][0]
+    else:
+        inst = graphgen.make_collection(**src)[0]
+        target, pattern = inst.target, inst.pattern
+    planes = SHARED["sparse"]["index"].csr_planes() if src == "sparse" else None
+    if loaded:
+        target = dataclasses.replace(
+            target, labels=(target.labels % REG_LOADED_LABELS).astype(np.int32))
+        pattern = graphgen.extract_pattern(target, REG_LOADED_EDGES, seed=REG_LOADED_SEED)
+        planes = None
+    csr = name.endswith("_csr")
+    n_t = sge.COLLECTION_NT[name[:-4] if csr else name]
+    w = sge._w_for(n_t)
+    if target.n != n_t:
+        raise AssertionError(f"{name}: the target has {target.n} nodes, the cell {n_t}")
+    b = cell.build()
+    replace = dataclasses.replace
+    if csr:
+        cfg = replace(sge.ENGINE, step_backend="csr", use_pallas=True)
+        n_elab = target.n_edge_labels
+        plan, prep_counts = _launched(lambda: build_csr_plan(
+            pattern, target, variant=sge.CSR_VARIANT, p_pad=sge.P_PAD,
+            max_parents=sge.MAX_PARENTS, w=w, use_pallas=True, planes=planes, device=device))
+        want_plan = extend.abstract_csr_plan_arrays(n_t, w, sge.P_PAD, sge.MAX_PARENTS,
+                                                    n_elab=n_elab)
+        plain = replace(cfg, use_pallas=False)
+        runs = {"K7": (b.fn, "csr_extend_bucketed"),
+                "K6": (sge.build_csr_round(n_t, replace(sge.ENGINE, csr_walk="flat")).fn,
+                       "csr_extend"),
+                "plain": (lambda p, s: eng.make_round_fn(plain, p)(s), None)}
+        prep_kernels = ("csr_arc_sweep", "popcount_rows")
+    else:
+        cfg = sge.ENGINE
+        packed = PackedGraph.from_graph(target, pad_words_to=128)
+        n_elab = packed.n_edge_labels
+        flags = variant_flags(VARIANT)
+
+        def prepare():
+            domains = compute_domains_device(pattern, packed, use_ac=flags["use_ac"],
+                                             use_fc=flags["use_fc"],
+                                             interleave=flags["interleave"],
+                                             use_pallas=True, device=device)
+            return build_plan(pattern, packed, VARIANT, p_pad=sge.P_PAD,
+                              max_parents=sge.MAX_PARENTS, domains=domains)
+
+        plan, prep_counts = _launched(prepare)
+        want_plan = extend.abstract_plan_arrays(n_t, w, sge.P_PAD, sge.MAX_PARENTS,
+                                                n_elab=n_elab)
+        runs = {"plain": (b.fn, None),
+                "K1": (sge.build_round(n_t, replace(sge.ENGINE, step_backend="pallas")).fn,
+                       "extend_step"),
+                "K2": (sge.build_round(n_t, replace(sge.ENGINE, use_pallas=True)).fn,
+                       "candidate_mask")}
+        prep_kernels = ()
+    arrays = extend.plan_arrays_for(cfg, [plan], device)
+    got_plan, cell_plan = _tensor_shapes(arrays), _tensor_shapes(want_plan)
+    if csr:  # the indices' length follows the target's nnz and longest row
+        got_plan = [s for f, s in zip(arrays._fields, got_plan) if f != "indices"]
+        cell_plan = [s for f, s in zip(want_plan._fields, cell_plan) if f != "indices"]
+    got_state = _tensor_shapes(init_state(plan, cfg, device))
+    row = dict(cell=name, case="loaded" if loaded else "collection", n_t=n_t, w=w,
+               node_labels=target.n_node_labels, plan_w=plan.w, p_pad=plan.p_pad, n_p=plan.n_p,
+               max_parents=plan.max_parents, n_elab=n_elab, cell_n_elab=1,
+               pattern_nodes=pattern.n, pattern_arcs=pattern.m,
+               lanes=[cfg.n_workers, cfg.expand_width],
+               variant=sge.CSR_VARIANT if csr else VARIANT, prepare_launches=prep_counts,
+               note=b.note, model_flops=b.model_flops,
+               plan_shapes_equal=got_plan == cell_plan,
+               state_shapes_equal=got_state == _tensor_shapes(b.args[1]))
+    if csr:
+        row.update(deg_cap=arrays.deg_cap, cell_deg_cap=b.args[0].deg_cap,
+                   indices=arrays.indices.numel(), cell_indices=b.args[0].indices.numel())
+    row["setup_s"] = time.perf_counter() - t0
+    launches = dict(prep_counts)
+    ref, rounds = None, {}
+    for label, (fn, kernel) in runs.items():
+        state, seconds, counts = registry_round(fn, arrays, plan, cfg, device)
+        _add(launches, counts)
+        rounds[label] = dict(seconds=seconds, launches={k: v for k, v in counts.items() if v},
+                             states=int(state["states"].sum()),
+                             matches=int(state["matches"].sum()), steps=int(state["steps"]),
+                             kernel=kernel, kernel_launched=bool(kernel and counts[kernel]),
+                             any_launch=any(counts.values()))
+        if ref is None:
+            ref = state
+        else:
+            rounds[label]["differing_fields"] = [
+                f for f in ref if not torch.equal(ref[f], state[f])]
+        del state
+    row["rounds"] = rounds
+    del ref, arrays, plan
+    torch.cuda.empty_cache()
+    bad = [f"{label}: {r['differing_fields']}" for label, r in rounds.items()
+           if r.get("differing_fields")]
+    bad += [f"{label} launched no {r['kernel']}" for label, r in rounds.items()
+            if r["kernel"] and not r["kernel_launched"]]
+    bad += [f"the plain round launched {r['launches']}" for label, r in rounds.items()
+            if not r["kernel"] and r["any_launch"]]
+    bad += [f"the prepare launched no {k}" for k in prep_kernels if not prep_counts[k]]
+    if not (row["plan_shapes_equal"] and row["state_shapes_equal"]):
+        bad.append(f"the concrete plan {got_plan} / state {got_state} != the cell's "
+                   f"{cell_plan} / {_tensor_shapes(b.args[1])}")
+    if not any(r["states"] for r in rounds.values()):
+        bad.append("the round reached no state")
+    return row, launches, bad
+
+
+def registry_prefill_32k(device, smi: str) -> tuple:
+    """14c: minitron-8b's ``prefill_32k`` cell through its ``fn`` at full
+    width and depth, batch cut to :data:`REG_PREFILL_BATCH`: K9 once per
+    layer at S = 32,768, finite logits; then K9 on layer 0's q/k/v against
+    its plain version on :data:`REG_K9_HEADS` and timed beside
+    ``scaled_dot_product_attention``.  Returns (the printed result, K9
+    launches in the timed prefill, K9's timing at that length, the cases)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import lm_common, minitron_8b, registry
+    from repro_torch.data import graphgen
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.models import transformer as tf
+
+    cfg = LM_CFG or minitron_8b.CFG
+    cell = registry.get(minitron_8b.CFG.name).cells["prefill_32k"]
+    seq = REG_PREFILL_SEQ or lm_common.PREFILL_SHAPE["seq"]
+    b = lm_common.build_prefill(cfg, REG_PREFILL_BATCH, seq)
+    cache_gb = 2 * cfg.n_layers * seq * cfg.n_kv_heads * cfg.head_dim * 2 / 1e9
+    reduced = [f"prefill_32k batch {lm_common.PREFILL_SHAPE['batch']} -> {REG_PREFILL_BATCH} "
+               f"(the KV cache alone: {cache_gb * lm_common.PREFILL_SHAPE['batch']:.1f} GB at "
+               f"batch {lm_common.PREFILL_SHAPE['batch']}, {cache_gb * REG_PREFILL_BATCH:.1f} GB "
+               f"at {REG_PREFILL_BATCH})",
+               "random weights (seed 0), a random prompt (lm_batch seed 7)"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, seed=LM_SEED, device=device)
+    torch.cuda.synchronize(device)
+    init_s = time.perf_counter() - t0
+    if _tensor_shapes(params) != _tensor_shapes(b.args[0]):
+        raise AssertionError(f"{cfg.name}'s parameters differ from the cell's")
+    toks = torch.from_numpy(graphgen.lm_batch(REG_PREFILL_BATCH, seq, cfg.vocab_size,
+                                              seed=LM_TOKEN_SEED)["tokens"]).to(device)
+    first = {}
+    flash = ops.flash_attention
+
+    def capture(q, k, v, **kw):
+        first.setdefault("qkv", (q, k, v))
+        return flash(q, k, v, **kw)
+
+    ops.flash_attention = capture
+    try:
+        runs = []
+        for _ in range(2):  # the first call also warms each op at these shapes
+            ops.reset_launch_counts()
+            t1 = time.perf_counter()
+            logits, cache = b.fn(params, toks)
+            torch.cuda.synchronize(device)
+            runs.append(dict(seconds=time.perf_counter() - t1, launches=ops.launch_counts()))
+            finite = bool(torch.isfinite(logits).all())
+            shape = list(logits.shape)
+            del logits, cache
+    finally:
+        ops.flash_attention = flash
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    del params
+    torch.cuda.empty_cache()
+    q, k, v = first.pop("qkv")
+    got = fa.flash_attention_cuda(q, k, v)
+    torch.cuda.synchronize(device)
+    cases = [dict(k9_case(got[h:h + 1], q[h:h + 1], k[h:h + 1], v[h:h + 1], REG_K9_TOL),
+                  head=h, s=seq, kind="prefill_32k_layer0") for h in REG_K9_HEADS]
+    del got
+    bh, s, d = q.shape
+    pairs = s * (s + 1) // 2  # (query, key) pairs with key <= query
+    ops_n = 4 * bh * d * pairs
+    t_bytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    timing = dict(ms=cuda_ms(lambda: fa.flash_attention_cuda(q, k, v), reps=5, warmup=1),
+                  library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
+                      q[None], k[None], v[None], is_causal=True), reps=5, warmup=1),
+                  plain_ms_one_head=cuda_ms(lambda: kref.flash_attention_ref(
+                      q[:1], k[:1], v[:1]), reps=3, warmup=1),
+                  bytes=t_bytes, ops=ops_n,
+                  bound_ms=max(t_bytes / HBM_BYTES_PER_S, ops_n / TENSOR_BF16_PER_S) * 1e3,
+                  bound_by="bytes" if t_bytes / HBM_BYTES_PER_S >= ops_n / TENSOR_BF16_PER_S
+                  else "operations", shape=[bh, s, s, d], dtype=str(q.dtype))
+    del q, k, v
+    torch.cuda.empty_cache()
+    timed = runs[-1]
+    out = dict(model=cfg.name, cell=cell.name, cell_batch=lm_common.PREFILL_SHAPE["batch"],
+               batch=REG_PREFILL_BATCH, seq=seq, n_layers=cfg.n_layers, reduced=reduced,
+               init_s=init_s, runs=runs, tokens_per_s=REG_PREFILL_BATCH * seq / timed["seconds"],
+               model_flops=b.model_flops,
+               model_flop_rate=b.model_flops / timed["seconds"],
+               logits_shape=shape, logits_finite=finite, peak_memory_gb=peak_gb,
+               card_memory_gb=torch.cuda.get_device_properties(device).total_memory / 1e9,
+               k9_cases=cases, k9_timing=timing, nvidia_smi=smi)
+    bad = [f"K9 launched {r['launches']['flash_attention']} times, not {cfg.n_layers}"
+           for r in runs if r["launches"]["flash_attention"] != cfg.n_layers]
+    bad += [f"another kernel launched: {r['launches']}" for r in runs
+            if any(v for n, v in r["launches"].items() if n != "flash_attention")]
+    if not finite or shape != [REG_PREFILL_BATCH, cfg.vocab_size]:
+        bad.append(f"logits {shape}, finite {finite}")
+    bad += [f"K9 head {c['head']} disagrees with its plain version: {c}" for c in cases
+            if c["flash_attention_mismatches"]]
+    return out, timed["launches"]["flash_attention"], timing, cases, bad
+
+
+_SGE_SMOKE_LINE = re.compile(r"^\[train\] sge smoke: (\{.*\})$", re.M)
+
+
+def registry_driver(device) -> dict:
+    """14d: ``repro_torch.launch.train.main(["--arch", "sge"])`` on the card:
+    its matches and states against ``ref_enumerate`` on the smoke's own
+    target and pattern."""
+    import ast
+    import io
+
+    from repro_torch.core.ref import ref_enumerate
+    from repro_torch.data import graphgen
+    from repro_torch.launch import train as launch
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    (rc, counts) = _launched(lambda: _main_quiet(launch, buf))
+    seconds = time.perf_counter() - t0
+    m = _SGE_SMOKE_LINE.search(buf.getvalue())
+    got = ast.literal_eval(m.group(1)) if m else None
+    tgt = graphgen.random_graph(48, 160, n_labels=4, seed=3)
+    ref = ref_enumerate(graphgen.extract_pattern(tgt, 5, seed=4), tgt, variant="ri-ds-si-fc")
+    ok = (rc == 0 and got is not None and (got["matches"], got["states"]) ==
+          (float(ref.matches), float(ref.states)))
+    return dict(argv=["--arch", "sge"], rc=rc, smoke=got, ref=dict(matches=ref.matches,
+                states=ref.states), seconds=seconds, launches={k: v for k, v in counts.items()
+                                                               if v}, ok=ok)
+
+
+def _main_quiet(launch, buf) -> int:
+    with contextlib.redirect_stdout(buf):
+        return launch.main(["--arch", "sge"])
+
+
+def run_registry_path(device, smi: str) -> tuple:
+    """Phase 14: 14a the cells built on meta tensors, 14b the four ``sge``
+    cells at their exact shapes, 14c minitron-8b's ``prefill_32k`` cell at
+    batch 1, 14d the driver's ``sge`` smoke.  Returns (launches per kernel,
+    K9's timing at S = 32,768, the K9 cases)."""
+    from repro_torch.configs import registry
+
+    t_phase = time.perf_counter()
+    cells = registry_cells(device)
+    emit(dict(phase="registry_cells", nvidia_smi=smi, **cells))
+    launches, bad = {}, []
+    for name, cell in registry.get("sge").cells.items():
+        for loaded in (False, True):
+            row, counts, cell_bad = registry_sge_cell(device, name, cell, loaded)
+            emit(dict(phase="registry_sge", nvidia_smi=smi, **row))
+            _add(launches, counts)
+            bad += [f"{name} {row['case']}: {b}" for b in cell_bad]
+    if bad:
+        raise AssertionError(f"the sge cells failed their gates: {bad}")
+    prefill, k9, k9_timing_, k9_cases, bad = registry_prefill_32k(device, smi)
+    emit(dict(phase="registry_prefill_32k", **prefill))
+    if bad:
+        raise AssertionError(f"minitron-8b's prefill_32k cell failed its gates: {bad}")
+    _add(launches, {"flash_attention": k9})
+    driver = registry_driver(device)
+    emit(dict(phase="registry_driver", **driver))
+    if not driver["ok"]:
+        raise AssertionError(f"the driver's sge smoke failed: {driver}")
+    emit(dict(phase="registry_done", launches=launches, nvidia_smi=smi,
+              registry_path_s=time.perf_counter() - t_phase))
+    return launches, k9_timing_, k9_cases
+
+
 def main() -> int:
     try:
         import torch
@@ -5356,6 +5807,10 @@ def main() -> int:
 
     run_family_path(device, smi)
 
+    reg_launches, k9_long, reg_cases = run_registry_path(device, smi)
+    checks += reg_cases
+    timing["flash_attention"].update({f"prefill_32k_{k}": v for k, v in k9_long.items()})
+
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",
                             header="src/repro_torch/csrc/dense_step.cuh",
@@ -5410,6 +5865,9 @@ def main() -> int:
                                 + lm_launches["decode"]["flash_attention"] + lmf_launches),
     }
 
+    for name, m in meta.items():  # phase 14's launches
+        m["launches"] += reg_launches.get(name, 0)
+
     def own(name, key, suffix):  # K5's cases include its batched form's
         return key == name + suffix or (key.startswith(name + "_pairs") and key.endswith(suffix))
 
@@ -5422,7 +5880,8 @@ def main() -> int:
                  if k.startswith(("bound_", "bytes_", "target_b_", "entries_", "fp32_",
                                   "one_pair_", "k4_inputs_", "ptxas", "pairs", "planes",
                                   "cold_", "real_step_", "valid_", "lanes_", "table_",
-                                  "kernel_trace", "partitioned_step_", "head_dim_"))}
+                                  "kernel_trace", "partitioned_step_", "head_dim_",
+                                  "prefill_32k_"))}
         if "header" in m:
             extra["header"] = m["header"]
         kernels.append(dict(

@@ -1,6 +1,6 @@
 """gcn-cora — 2L d_hidden=16 aggregator=mean norm=sym.  [arXiv:1609.02907; paper]"""
 
-from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, gnn_smoke
+from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, make_gnn_arch
 from repro_torch.models.gnn import gcn
 
 CFG = gcn.GCNConfig(n_layers=2, d_hidden=16, aggregator="mean", norm="sym")
@@ -21,10 +21,9 @@ MODEL = GnnModelDef(
     param_specs=gcn.param_specs,
     forward=lambda params, cfg, batch: gcn.forward(params, cfg, batch),
     fwd_flops=fwd_flops,
-    notes="Shares the segment-sum substrate with the SGE engine's edge "
-    "gathers; load is regular full-batch.",
+    notes="Shares the segment_sum substrate with the SGE engine "
+    "(DESIGN.md §4); load is regular full-batch.",
 )
 
-
-def smoke(device=None):
-    return gnn_smoke(MODEL, device)
+ARCH = make_gnn_arch(MODEL)
+smoke = ARCH.smoke  # smoke(device=None): one train step of the smoke config

@@ -1,5 +1,5 @@
-"""Shared shapes, batches and the loss glue of the four GNN architectures (a
-port of ``repro.configs.gnn_common``).
+"""Shared cell builders, shapes, batches and the loss glue of the four GNN
+architectures (a port of ``repro.configs.gnn_common``).
 
 Shapes (every GNN arch runs all four):
   * ``full_graph_sm``  2,708 nodes / 10,556 edges / d_feat 1,433 (cora-like)
@@ -17,8 +17,9 @@ padded to a multiple of 512, as ``repro`` pads them.
 
 MODEL_FLOPS = 3 × analytic forward matmul flops (fwd + bwd ≈ 3× fwd).
 
-``repro``'s ``batch_abstract``, ``build_cell`` and ``make_gnn_arch`` (the
-registry's cells) wait for the port's registry (ROADMAP Queue 1 item 14.3).
+:func:`make_gnn_arch` registers an architecture with one cell per shape;
+a cell's abstract batch (:func:`batch_abstract`) and parameters are
+``device="meta"`` tensors.
 """
 
 from __future__ import annotations
@@ -31,9 +32,11 @@ from typing import Any, Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs import registry
+from repro_torch.configs.registry import Arch, Cell, CellBuild, round_up
 from repro_torch.core.engine import resolve_device
 from repro_torch.data import graphgen
-from repro_torch.models.common import init_from_specs
+from repro_torch.models.common import abstract_from_specs, init_from_specs, logical_from_specs
 from repro_torch.models.gnn import sampler as sampler_mod
 from repro_torch.models.gnn.common import masked_softmax_ce, segment_sum
 from repro_torch.train import optimizer as opt_mod
@@ -41,10 +44,8 @@ from repro_torch.train.trainer import make_train_step
 
 OPT = opt_mod.AdamWConfig(lr=1e-3, total_steps=100000)
 
-
-def round_up(x: int, m: int) -> int:
-    """``x`` rounded up to a multiple of ``m`` (``repro.configs.registry``'s)."""
-    return ((x + m - 1) // m) * m
+F32 = torch.float32
+I32 = torch.int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +83,38 @@ def gnn_shapes() -> Dict[str, GnnShape]:
         "ogb_products": GnnShape(2449029, 61859140, 100, 47, "node_cls").padded(),
         "molecule": GnnShape(30 * 128, 64 * 128, 16, 1, "graph_reg", n_graphs=128).padded(),
     }
+
+
+def batch_abstract(shape: GnnShape, with_positions: bool, with_mesh: bool):
+    """The batch of ``shape`` as ``device="meta"`` tensors, and its logical
+    axes (nodes on ``batch``, edges on ``edge``)."""
+    n, e = shape.n_nodes, shape.n_edges
+    shapes: Dict[str, Any] = {"src": ((e,), I32), "dst": ((e,), I32)}
+    logical: Dict[str, Any] = {"src": ("edge",), "dst": ("edge",)}
+    if shape.task == "block_cls":
+        shapes["table"] = ((shape.table_nodes, shape.d_feat), F32)
+        shapes["feats_idx"] = ((n,), I32)
+        logical["table"] = ("tensor", None)
+        logical["feats_idx"] = ("batch",)
+    else:
+        shapes["feats"] = ((n, shape.d_feat), F32)
+        logical["feats"] = ("batch", None)
+    if shape.task == "graph_reg":
+        shapes["graph_ids"] = ((n,), I32)
+        shapes["graph_targets"] = ((shape.n_graphs, shape.d_out), F32)
+        logical["graph_ids"] = ("batch",)
+        logical["graph_targets"] = ("batch", None)
+    else:
+        shapes["labels"] = ((n,), I32)
+        logical["labels"] = ("batch",)
+    if with_positions:
+        shapes["positions"] = ((n, 3), F32)
+        logical["positions"] = ("batch", None)
+    if with_mesh:
+        for key, (shp, dt) in graphgen.mesh_overlay_shapes(n).items():
+            shapes[key] = (shp, getattr(torch, dt))
+            logical[key] = graphgen.MESH_OVERLAY_LOGICAL[key]
+    return registry.abstract_dict(shapes), logical
 
 
 def batch_arrays(shape: GnnShape, with_positions: bool, with_mesh: bool,
@@ -149,6 +182,32 @@ class GnnModelDef:
     with_mesh: bool = False
     smoke_cfg: Any = None
     notes: str = ""
+
+
+def build_cell(md: GnnModelDef, shape: GnnShape) -> CellBuild:
+    """One train step (``OPT``) of ``md`` at its ``cfg`` on ``shape``."""
+    specs = md.param_specs(md.cfg, shape.d_feat, shape.d_out)
+    p_abs = abstract_from_specs(specs)
+    p_log = logical_from_specs(specs)
+    b_abs, b_log = batch_abstract(shape, md.with_positions, md.with_mesh)
+    fwd = functools.partial(md.forward, cfg=md.cfg)
+    step = make_train_step(task_loss(lambda p, b: fwd(p, batch=b), shape), OPT)
+    return CellBuild(
+        fn=step,
+        args=(p_abs, opt_mod.abstract_state(p_abs), b_abs),
+        logical=(p_log, opt_mod.state_logical(p_log), b_log),
+        model_flops=3.0 * md.fwd_flops(md.cfg, shape),
+        donate=(0, 1),
+    )
+
+
+def make_gnn_arch(md: GnnModelDef) -> Arch:
+    cells = {sname: Cell(md.name, sname, "train", functools.partial(build_cell, md, shape))
+             for sname, shape in gnn_shapes().items()}
+    return registry.register(Arch(
+        name=md.name, family="gnn", cfg=md.cfg, cells=cells,
+        smoke=functools.partial(gnn_smoke, md), notes=md.notes,
+    ))
 
 
 SMOKE_SHAPE = GnnShape(64, 256, 8, 4, "node_cls").padded()

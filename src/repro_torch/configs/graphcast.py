@@ -6,7 +6,7 @@ GNN shapes (grid = target graph, mesh = N/4 subsampled nodes, fanout-4
 bipartite edges, `repro_torch.data.graphgen.mesh_overlay`).
 """
 
-from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, gnn_smoke
+from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, make_gnn_arch
 from repro_torch.models.gnn import graphcast
 
 CFG = graphcast.GraphCastConfig(
@@ -41,9 +41,8 @@ MODEL = GnnModelDef(
     fwd_flops=fwd_flops,
     with_mesh=True,
     smoke_cfg=SMOKE,
-    notes="Deep mesh processor (16 stacked layers); heaviest GNN cell.",
+    notes="Deep mesh processor (16 scanned layers); heaviest GNN cell.",
 )
 
-
-def smoke(device=None):
-    return gnn_smoke(MODEL, device)
+ARCH = make_gnn_arch(MODEL)
+smoke = ARCH.smoke  # smoke(device=None): one train step of the smoke config

@@ -7,7 +7,7 @@ shape spec); skewed block sizes are spread across shards with the LPT
 balancer (``balance_buckets``).
 """
 
-from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, gnn_smoke
+from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, make_gnn_arch
 from repro_torch.models.gnn import sage
 
 CFG = sage.SAGEConfig(n_layers=2, d_hidden=128, aggregator="mean", sample_sizes=(25, 10))
@@ -29,9 +29,8 @@ MODEL = GnnModelDef(
     forward=lambda params, cfg, batch: sage.forward(params, cfg, batch),
     fwd_flops=fwd_flops,
     notes="minibatch_lg uses the paper's load-balancing insight for "
-    "skewed sampled blocks.",
+    "skewed sampled blocks (DESIGN.md §4).",
 )
 
-
-def smoke(device=None):
-    return gnn_smoke(MODEL, device)
+ARCH = make_gnn_arch(MODEL)
+smoke = ARCH.smoke  # smoke(device=None): one train step of the smoke config

@@ -2,9 +2,10 @@
 MoE 8 experts top-2.  [hf:xai-org/grok-1; unverified]
 
 The numbers of ``repro.configs.grok_1_314b`` (``CFG`` and the CPU-sized
-``SMOKE``).
+``SMOKE``) and its ``ARCH``, the registry's four cells.
 """
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -36,3 +37,7 @@ SMOKE = LMConfig(
     max_seq_len=64,
     kv_block=8,
 )
+
+ARCH = make_lm_arch(CFG, SMOKE, notes="MoE 8e top-2; paper technique N/A "
+                    "(dense regular compute); dispatch shares the scheduler's "
+                    "coalesce-then-rebalance shape (DESIGN.md §4).")

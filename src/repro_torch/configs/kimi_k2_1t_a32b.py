@@ -2,9 +2,10 @@
 vocab=163840, MoE 384 experts top-8 (+1 shared).  [arXiv:2501.kimi2; unverified]
 
 The numbers of ``repro.configs.kimi_k2_1t_a32b`` (``CFG`` and the CPU-sized
-``SMOKE``).
+``SMOKE``) and its ``ARCH``, the registry's four cells.
 """
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -37,3 +38,7 @@ SMOKE = LMConfig(
     max_seq_len=64,
     kv_block=8,
 )
+
+ARCH = make_lm_arch(CFG, SMOKE, notes="Trillion-param MoE; training memory "
+                    "needs >=2048 chips (reported honestly in §Dry-run); "
+                    "dry-run validates sharding at 256/512.")

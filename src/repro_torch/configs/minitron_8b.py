@@ -2,11 +2,11 @@
 (pruned nemotron).  [arXiv:2407.14679; hf]
 
 The numbers of ``repro.configs.minitron_8b`` (``CFG`` and the CPU-sized
-``SMOKE``), and the serving shapes of `repro_torch.configs.lm_common`
-beside them.
+``SMOKE``), its ``ARCH`` (the registry's four cells), and the serving
+shapes of `repro_torch.configs.lm_common` beside them.
 """
 
-from repro_torch.configs.lm_common import DECODE_SHAPE, PREFILL_SHAPE  # noqa: F401
+from repro_torch.configs.lm_common import DECODE_SHAPE, PREFILL_SHAPE, make_lm_arch  # noqa: F401
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -35,3 +35,5 @@ SMOKE = LMConfig(
     max_seq_len=64,
     kv_block=8,
 )
+
+ARCH = make_lm_arch(CFG, SMOKE)

@@ -2,9 +2,10 @@
 squared-ReLU MLP.  [arXiv:2402.16819; unverified]
 
 The numbers of ``repro.configs.nemotron_4_15b`` (``CFG`` and the CPU-sized
-``SMOKE``).
+``SMOKE``) and its ``ARCH``, the registry's four cells.
 """
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -33,3 +34,6 @@ SMOKE = LMConfig(
     max_seq_len=64,
     kv_block=8,
 )
+
+ARCH = make_lm_arch(CFG, SMOKE, notes="Dense GQA + squared-ReLU; paper "
+                    "technique N/A (regular load; DESIGN.md §4).")

@@ -1,7 +1,7 @@
 """schnet — n_interactions=3 d_hidden=64 rbf=300 cutoff=10.
 [arXiv:1706.08566; paper]"""
 
-from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, gnn_smoke
+from repro_torch.configs.gnn_common import GnnModelDef, GnnShape, make_gnn_arch
 from repro_torch.models.gnn import schnet
 
 CFG = schnet.SchNetConfig(n_interactions=3, d_hidden=64, n_rbf=300, cutoff=10.0)
@@ -35,6 +35,5 @@ MODEL = GnnModelDef(
     "300 RBFs makes this the most edge-bound GNN cell.",
 )
 
-
-def smoke(device=None):
-    return gnn_smoke(MODEL, device)
+ARCH = make_gnn_arch(MODEL)
+smoke = ARCH.smoke  # smoke(device=None): one train step of the smoke config

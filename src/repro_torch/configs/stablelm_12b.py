@@ -2,9 +2,11 @@
 [hf:stabilityai/stablelm-2-1_6b; hf]
 
 The numbers of ``repro.configs.stablelm_12b`` (``CFG`` and the CPU-sized
-``SMOKE``).  Its head width is 5120 / 32 = 160.
+``SMOKE``) and its ``ARCH``, the registry's four cells.  Its head width
+is 5120 / 32 = 160.
 """
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.models.transformer import LMConfig
 
 CFG = LMConfig(
@@ -33,3 +35,5 @@ SMOKE = LMConfig(
     max_seq_len=64,
     kv_block=8,
 )
+
+ARCH = make_lm_arch(CFG, SMOKE)

@@ -166,6 +166,50 @@ def make_pack_arrays(plans: Sequence[SearchPlan], device,
     return PlanArrays(adj_bits=rows[:-1].view(first.adj_bits.shape), rows=rows, **stacked)
 
 
+def _meta(*shape, dtype=torch.int32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _abstract_plan_fields(w: int, p_pad: int, max_parents: int) -> dict:
+    """The fields :class:`PlanArrays` and :class:`CsrPlanArrays` share, for
+    a pack of one, as ``device="meta"`` tensors."""
+    return dict(
+        order_valid=_meta(p_pad, dtype=torch.bool),
+        parent_pos=_meta(p_pad, max_parents),
+        parent_dir=_meta(p_pad, max_parents),
+        parent_elab=_meta(p_pad, max_parents),
+        dom_bits=_meta(p_pad, w),
+        n_p=_meta(1),
+        p_pad=p_pad,
+        n_p_max=p_pad,
+    )
+
+
+def abstract_plan_arrays(n_t: int, w: int, p_pad: int, max_parents: int,
+                         n_elab: int = 1) -> PlanArrays:
+    """A pack of one's :class:`PlanArrays` as ``device="meta"`` tensors (no
+    storage): ``repro``'s shapes, ``n_p`` as ``[1]``, bitmap words
+    ``int32``, ``adj_bits`` a view of ``rows``.  The pattern size is
+    unknown, so ``n_p_max`` is ``p_pad``."""
+    rows = _meta(n_elab * 2 * n_t + 1, w)
+    return PlanArrays(adj_bits=rows[:-1].view(n_elab, 2, n_t, w), rows=rows,
+                      **_abstract_plan_fields(w, p_pad, max_parents))
+
+
+PLAN_LOGICAL = PlanArrays(
+    order_valid=(None,),
+    parent_pos=(None, None),
+    parent_dir=(None, None),
+    parent_elab=(None, None),
+    dom_bits=(None, "tensor"),
+    adj_bits=(None, None, None, "tensor"),
+    rows=(None, "tensor"),
+    n_p=(None,),
+    p_pad=None,
+    n_p_max=None,
+)
+
+
 # ---------------------------------------------------------------------------
 # CSR plan arrays (the sparse twin of PlanArrays)
 # ---------------------------------------------------------------------------
@@ -209,6 +253,33 @@ def _pad_deg_cap(deg_cap: int) -> int:
 def _pad_nnz(nnz: int) -> int:
     """nnz shape bucket (multiples of 1024), as ``repro`` pads it."""
     return max(1024, ((nnz + 1023) // 1024) * 1024)
+
+
+def abstract_csr_plan_arrays(n_t: int, w: int, p_pad: int, max_parents: int,
+                             n_elab: int = 1, nnz: int = 0,
+                             deg_cap: int = 8) -> CsrPlanArrays:
+    """A pack of one's :class:`CsrPlanArrays` as ``device="meta"`` tensors,
+    padded as :func:`upload_csr` pads ``nnz`` entries of rows at most
+    ``deg_cap`` long (``deg_cap`` stands for ``repro``'s ``seg_iota``)."""
+    deg_cap = _pad_deg_cap(deg_cap)
+    return CsrPlanArrays(indptr=_meta(n_elab * 2, n_t + 1),
+                         indices=_meta(_pad_nnz(nnz) + deg_cap), deg_cap=deg_cap,
+                         **_abstract_plan_fields(w, p_pad, max_parents))
+
+
+CSR_PLAN_LOGICAL = CsrPlanArrays(
+    order_valid=(None,),
+    parent_pos=(None, None),
+    parent_dir=(None, None),
+    parent_elab=(None, None),
+    dom_bits=(None, "tensor"),
+    indptr=(None, None),
+    indices=(None,),
+    deg_cap=None,
+    n_p=(None,),
+    p_pad=None,
+    n_p_max=None,
+)
 
 
 def plan_csr(plan: SearchPlan) -> CsrPlanes:

@@ -394,33 +394,66 @@ def stack_states(states) -> EngineState:
     return EngineState(*(torch.cat(xs, dim=0) for xs in zip(*states)))
 
 
-def _empty_state(plan: SearchPlan, cfg: "EngineConfig", device) -> EngineState:
-    """A pack of one lane with empty stacks and zero counters."""
+def _state_shapes(cfg: "EngineConfig", w: int, p_pad: int) -> dict:
+    """``(shape, dtype, fill)`` of every :class:`EngineState` field of a pack
+    of one lane with ``w`` bitmap words and ``p_pad`` positions."""
     v = cfg.n_workers
-    p_pad, w = plan.p_pad, plan.w
     s_cap = cfg.resolved_stack_cap(p_pad)
     mcap = max(1, cfg.collect_matches)
-
-    def zeros(*shape, dtype=torch.int32):
-        return torch.zeros((1,) + shape, dtype=dtype, device=device)
-
-    return EngineState(
-        st_depth=zeros(v, s_cap),
-        st_map=torch.full((1, v, s_cap, p_pad), -1, dtype=torch.int32, device=device),
-        st_used=zeros(v, s_cap, w if cfg.store_used else 1),
-        st_cand=zeros(v, s_cap, w),
-        base=zeros(v),
-        size=zeros(v),
-        matches=zeros(v),
-        states=zeros(v),
-        exp_depth=zeros(v),
-        steals=zeros(v),
-        steal_depth=zeros(v),
-        steal_rounds=zeros(),
-        steps=zeros(),
-        overflow=zeros(dtype=torch.bool),
-        match_buf=torch.full((1, v, mcap, p_pad), -1, dtype=torch.int32, device=device),
+    i32, per_worker, scalar = torch.int32, (1, v), (1,)
+    return dict(
+        st_depth=((1, v, s_cap), i32, 0),
+        st_map=((1, v, s_cap, p_pad), i32, -1),
+        st_used=((1, v, s_cap, w if cfg.store_used else 1), i32, 0),
+        st_cand=((1, v, s_cap, w), i32, 0),
+        base=(per_worker, i32, 0),
+        size=(per_worker, i32, 0),
+        matches=(per_worker, i32, 0),
+        states=(per_worker, i32, 0),
+        exp_depth=(per_worker, i32, 0),
+        steals=(per_worker, i32, 0),
+        steal_depth=(per_worker, i32, 0),
+        steal_rounds=(scalar, i32, 0),
+        steps=(scalar, i32, 0),
+        overflow=(scalar, torch.bool, 0),
+        match_buf=((1, v, mcap, p_pad), i32, -1),
     )
+
+
+def _empty_state(plan: SearchPlan, cfg: "EngineConfig", device) -> EngineState:
+    """A pack of one lane with empty stacks and zero counters."""
+    return EngineState(**{
+        name: torch.full(shape, fill, dtype=dtype, device=device)
+        for name, (shape, dtype, fill) in _state_shapes(cfg, plan.w, plan.p_pad).items()})
+
+
+def abstract_engine_state(cfg: "EngineConfig", w: int, p_pad: int) -> EngineState:
+    """The state of a pack of one lane as ``device="meta"`` tensors (no
+    storage): ``repro``'s shapes behind the pack axis, bitmap words
+    ``int32``."""
+    return EngineState(**{
+        name: torch.empty(shape, dtype=dtype, device="meta")
+        for name, (shape, dtype, _) in _state_shapes(cfg, w, p_pad).items()})
+
+
+# ``repro``'s logical axes behind the unnamed pack axis
+STATE_LOGICAL = EngineState(
+    st_depth=(None, "worker", None),
+    st_map=(None, "worker", None, None),
+    st_used=(None, "worker", None, "tensor"),
+    st_cand=(None, "worker", None, "tensor"),
+    base=(None, "worker"),
+    size=(None, "worker"),
+    matches=(None, "worker"),
+    states=(None, "worker"),
+    exp_depth=(None, "worker"),
+    steals=(None, "worker"),
+    steal_depth=(None, "worker"),
+    steal_rounds=(None,),
+    steps=(None,),
+    overflow=(None,),
+    match_buf=(None, "worker", None, None),
+)
 
 
 def _upload(a: np.ndarray, device) -> torch.Tensor:

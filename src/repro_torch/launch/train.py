@@ -3,6 +3,7 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 5 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch minitron-8b --steps 20 --ckpt-dir DIR
   PYTHONPATH=src python -m repro_torch.launch.train --arch graphcast --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch sge --device cpu
 
 ``--smoke`` (on by default, as in ``repro``) trains the architecture's
 reduced ``SMOKE`` config on synthetic token streams; ``--set`` overrides
@@ -10,12 +11,13 @@ its fields (`repro_torch.configs.overrides`).  With ``--ckpt-dir`` the loop
 checkpoints there and a later run on the same directory resumes from its
 newest checkpoint.  It runs on ``--device`` (default: the CUDA card).
 
-The registry is not ported: an architecture id names its config module
-(``minitron-8b`` → `repro_torch.configs.minitron_8b`).  A GNN or recsys id
-(``gcn-cora``, ``graphsage-reddit``, ``schnet``, ``graphcast``, ``din``)
-runs that module's ``smoke(device)`` — one train step on synthetic data —
-and prints ``[train] <id> smoke: {...}``, as ``repro``'s driver does for
-its non-LM architectures.  The paper's own ``sge`` workload is refused.
+``--arch`` resolves through the registry (`repro_torch.configs.registry`;
+an unknown id is a ``KeyError``).  An LM id trains as above.  Every other
+family runs its architecture's ``smoke(device)`` and prints ``[train] <id>
+smoke: {...}``, as ``repro``'s driver does: a GNN or recsys id (``gcn-cora``,
+``graphsage-reddit``, ``schnet``, ``graphcast``, ``din``) one train step on
+synthetic data, the paper's own ``sge`` an enumeration checked against the
+sequential oracle.
 """
 
 from __future__ import annotations
@@ -29,15 +31,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs import overrides as ov
+from repro_torch.configs import registry
 from repro_torch.core.engine import resolve_device
 from repro_torch.models import transformer as tf
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train.trainer import LoopConfig, TrainLoop, make_train_step
 from repro_torch.train.tree import tree_map
-
-LM_ARCHS = ("grok-1-314b", "kimi-k2-1t-a32b", "nemotron-4-15b", "minitron-8b", "stablelm-12b")
-SMOKE_ARCHS = ("gcn-cora", "graphsage-reddit", "schnet", "graphcast", "din")
-NOT_PORTED = {"sge": "ROADMAP Queue 1 item 14.5"}
 
 
 def lm_data_iterator(cfg: tf.LMConfig, batch: int, seq: int, seed: int = 0,
@@ -100,17 +99,6 @@ def train_lm(
     return loop.run(params, opt_state, data)
 
 
-def config_module(arch: str):
-    """The config module of architecture ``arch`` (an LM or a smoke id)."""
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not an LM; its model is not ported yet ({NOT_PORTED[arch]})")
-    if arch not in LM_ARCHS + SMOKE_ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; have "
-                       f"{sorted(LM_ARCHS + SMOKE_ARCHS + tuple(NOT_PORTED))}")
-    return importlib.import_module(f"repro_torch.configs.{arch.replace('-', '_')}")
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -126,11 +114,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="torch device (default: the CUDA card; 'cpu' to run on the CPU)")
     args = ap.parse_args(argv)
 
-    mod = config_module(args.arch)
-    if args.arch in SMOKE_ARCHS:  # a full train step on synthetic data
-        out = mod.smoke(device=args.device)
+    arch = registry.get(args.arch)
+    if arch.family != "lm":  # a train step on synthetic data, or sge's enumeration
+        out = arch.smoke(device=args.device)
         print(f"[train] {args.arch} smoke: {out}")
         return 0
+    mod = importlib.import_module(f"repro_torch.configs.{args.arch.replace('-', '_')}")
     cfg = mod.SMOKE if args.smoke else mod.CFG
     cfg = ov.apply(cfg, args.overrides)
     _, _, history = train_lm(cfg, steps=args.steps, ckpt_dir=args.ckpt_dir, accum=args.accum,

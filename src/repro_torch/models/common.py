@@ -3,13 +3,14 @@ dtype, parameter declarations and initialisers (a port of
 ``repro.models.common``).
 
 The GNN and recsys models declare their parameters as ``ParamSpec`` trees,
-as ``repro`` does: shape, logical sharding axes (kept as plain data for the
-distributed layer), dtype, init and scale.  :func:`init_from_specs` draws
-such a tree from a ``torch.Generator``; :func:`init_param` draws one leaf
-as ``ParamSpec.materialize`` does.  The transformer keeps its own shape
-table (`repro_torch.models.transformer.param_shapes`) over the same
-:func:`init_param`.  ``repro``'s ``abstract_from_specs`` and
-``logical_from_specs`` (XLA lowering aids) wait for the registry.
+as ``repro`` does, and so does the transformer: shape, logical sharding
+axes (kept as plain data for the distributed layer), dtype, init and scale.
+:func:`init_from_specs` draws such a tree from a ``torch.Generator``;
+:func:`init_param` draws one leaf as ``ParamSpec.materialize`` does.
+:func:`abstract_from_specs` gives the tree as ``device="meta"`` tensors,
+which allocate nothing (``repro``'s ``ShapeDtypeStruct`` trees, the
+registry's abstract arguments), and :func:`logical_from_specs` its logical
+axes.
 """
 
 from __future__ import annotations
@@ -92,11 +93,32 @@ class ParamSpec:
     init: str = "normal"
     scale: Optional[float] = None
 
+    def abstract(self) -> torch.Tensor:
+        """A ``device="meta"`` tensor of the leaf's shape and dtype."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
     def materialize(self, generator: torch.Generator, device) -> torch.Tensor:
         return init_param(self.shape, self.init, self.dtype, generator, device, self.scale)
 
 
 SpecTree = Dict[str, Any]  # nested dicts of ParamSpec
+
+
+def map_specs(fn: Callable[[ParamSpec], Any], specs: SpecTree):
+    """``fn`` over every ``ParamSpec`` of the tree, keeping its layout."""
+    if isinstance(specs, ParamSpec):
+        return fn(specs)
+    return {k: map_specs(fn, v) for k, v in specs.items()}
+
+
+def abstract_from_specs(specs: SpecTree):
+    """The tree as ``device="meta"`` tensors: shapes and dtypes, no storage."""
+    return map_specs(ParamSpec.abstract, specs)
+
+
+def logical_from_specs(specs: SpecTree):
+    """The tree's logical axes, one tuple per leaf."""
+    return map_specs(lambda s: s.logical, specs)
 
 
 def init_from_specs(specs: SpecTree, seed_or_generator: Union[int, torch.Generator] = 0,

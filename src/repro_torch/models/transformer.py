@@ -4,6 +4,7 @@
 
 Entry points:
   * ``init_params(cfg, seed, device)``                → parameter dict
+  * ``abstract_params(cfg)`` / ``param_logical(cfg)``  → meta tensors / logical axes
   * ``params_from_numpy(tree, device, dtype)``        → parameter dict
   * ``empty_cache(cfg, batch, max_len, device)``      → zero KV cache
   * ``forward(params, cfg, tokens)``                  → final hidden states
@@ -68,8 +69,11 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import apply_rope, blockwise_attention, windowed_attention
 from repro_torch.models.common import (  # noqa: F401  (params_from_numpy: kept under this name)
     ACTIVATIONS,
+    ParamSpec,
+    abstract_from_specs,
     dot,
-    init_param,
+    logical_from_specs,
+    map_specs,
     params_from_numpy,
     rms_norm,
 )
@@ -137,58 +141,71 @@ class LMConfig:
 # parameters
 # ---------------------------------------------------------------------------
 
-def param_shapes(cfg: LMConfig) -> Dict[str, Any]:
-    """``(shape, init, scale, dtype)`` per parameter, in the parameter tree's
-    layout (``scale`` None: ``1/√fan_in``; ``dtype`` None: ``cfg.dtype``)."""
+def param_specs(cfg: LMConfig) -> Dict[str, Any]:
+    """The parameter tree as ``ParamSpec``s with ``repro``'s logical axes:
+    FSDP on the model dims, tensor parallel on heads, ``d_ff`` and the
+    vocabulary.  MoE expert weights shard their expert axis from 64 experts
+    up; below that (grok-1's 8 do not divide a 16-way model axis) the
+    per-expert FFN dim is tensor-sharded instead."""
     d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     n, v, f = cfg.n_layers, cfg.vocab_size, cfg.d_ff
-    layers = {
-        "g1": ((n, d), "ones", None, None),
-        "g2": ((n, d), "ones", None, None),
-        "wq": ((n, d, h, dh), "normal", None, None),
-        "wk": ((n, d, kh, dh), "normal", None, None),
-        "wv": ((n, d, kh, dh), "normal", None, None),
-        "wo": ((n, h, dh, d), "normal", None, None),
+    dt = cfg.dtype
+    layers: Dict[str, ParamSpec] = {
+        "g1": ParamSpec((n, d), (None, None), dt, init="ones"),
+        "g2": ParamSpec((n, d), (None, None), dt, init="ones"),
+        "wq": ParamSpec((n, d, h, dh), (None, "fsdp", "tensor", None), dt),
+        "wk": ParamSpec((n, d, kh, dh), (None, "fsdp", "tensor", None), dt),
+        "wv": ParamSpec((n, d, kh, dh), (None, "fsdp", "tensor", None), dt),
+        "wo": ParamSpec((n, h, dh, d), (None, "tensor", None, "fsdp"), dt),
     }
     if cfg.moe:
         e, fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
-        layers["router"] = ((n, d, e), "normal", None, torch.float32)
-        layers["we_gate"] = ((n, e, d, fe), "normal", None, None)
-        layers["we_up"] = ((n, e, d, fe), "normal", None, None)
-        layers["we_down"] = ((n, e, fe, d), "normal", None, None)
+        if e >= 64:
+            log_gate = (None, "expert", "fsdp", None)
+            log_down = (None, "expert", None, "fsdp")
+        else:
+            log_gate = (None, None, "fsdp", "tensor")
+            log_down = (None, None, "tensor", "fsdp")
+        layers["router"] = ParamSpec((n, d, e), (None, "fsdp", None), torch.float32)
+        layers["we_gate"] = ParamSpec((n, e, d, fe), log_gate, dt)
+        layers["we_up"] = ParamSpec((n, e, d, fe), log_gate, dt)
+        layers["we_down"] = ParamSpec((n, e, fe, d), log_down, dt)
         if cfg.moe.n_shared_experts:
             fs = cfg.moe.n_shared_experts * fe
-            layers["ws_gate"] = ((n, d, fs), "normal", None, None)
-            layers["ws_up"] = ((n, d, fs), "normal", None, None)
-            layers["ws_down"] = ((n, fs, d), "normal", None, None)
+            layers["ws_gate"] = ParamSpec((n, d, fs), (None, "fsdp", "tensor"), dt)
+            layers["ws_up"] = ParamSpec((n, d, fs), (None, "fsdp", "tensor"), dt)
+            layers["ws_down"] = ParamSpec((n, fs, d), (None, "tensor", "fsdp"), dt)
     else:
         if cfg.gated:
-            layers["w_gate"] = ((n, d, f), "normal", None, None)
-        layers["w_up"] = ((n, d, f), "normal", None, None)
-        layers["w_down"] = ((n, f, d), "normal", None, None)
+            layers["w_gate"] = ParamSpec((n, d, f), (None, "fsdp", "tensor"), dt)
+        layers["w_up"] = ParamSpec((n, d, f), (None, "fsdp", "tensor"), dt)
+        layers["w_down"] = ParamSpec((n, f, d), (None, "tensor", "fsdp"), dt)
     return {
-        "embed": ((v, d), "normal", 1.0, None),
+        "embed": ParamSpec((v, d), ("tensor", "fsdp"), dt, scale=1.0),
         "layers": layers,
-        "final_norm": ((d,), "ones", None, None),
-        "lm_head": ((d, v), "normal", None, None),
+        "final_norm": ParamSpec((d,), (None,), dt, init="ones"),
+        "lm_head": ParamSpec((d, v), ("fsdp", "tensor"), dt),
     }
+
+
+def abstract_params(cfg: LMConfig):
+    """The parameters as ``device="meta"`` tensors (no storage)."""
+    return abstract_from_specs(param_specs(cfg))
+
+
+def param_logical(cfg: LMConfig):
+    return logical_from_specs(param_specs(cfg))
 
 
 def init_params(cfg: LMConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (the card by default).  Same distributions as ``repro``'s
-    ``init_params``; not the same numbers."""
+    ``device`` (the card by default), drawn leaf by leaf in the tree's own
+    order.  Same distributions as ``repro``'s ``init_params``; not the same
+    numbers."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-
-    def make(spec):
-        shape, init, scale, dtype = spec
-        return init_param(shape, init, dtype or cfg.dtype, gen, device, scale)
-
-    shapes = param_shapes(cfg)
-    return {name: ({k: make(s) for k, s in spec.items()} if name == "layers" else make(spec))
-            for name, spec in shapes.items()}
+    return map_specs(lambda spec: spec.materialize(gen, device), param_specs(cfg))
 
 
 def empty_cache(cfg: LMConfig, batch: int, max_len: Optional[int] = None,
@@ -199,6 +216,16 @@ def empty_cache(cfg: LMConfig, batch: int, max_len: Optional[int] = None,
     shape = (cfg.n_layers, batch, max_len or cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))
+
+
+def abstract_cache(cfg: LMConfig, batch: int, max_len: Optional[int] = None) -> Cache:
+    """:func:`empty_cache`'s shapes as ``device="meta"`` tensors."""
+    shape = (cfg.n_layers, batch, max_len or cfg.max_seq_len, cfg.n_kv_heads, cfg.head_dim)
+    return (torch.empty(shape, dtype=cfg.dtype, device="meta"),
+            torch.empty(shape, dtype=cfg.dtype, device="meta"))
+
+
+CACHE_LOGICAL = ((None, "batch", "seq", None, None), (None, "batch", "seq", None, None))
 
 
 def layer_params(params, i: int) -> Dict[str, torch.Tensor]:

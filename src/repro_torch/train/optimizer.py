@@ -10,8 +10,9 @@ used.
 :func:`update` works leaf by leaf and in place: the moments and the
 parameters are overwritten, and a leaf needs at most two fp32 temporaries
 of its size (minitron-8b's embedding alone is 1.05 B parameters, 4.2 GB per
-fp32 copy).  ``repro``'s ``abstract_state`` and ``state_logical`` (XLA and
-sharding aids) are not ported.
+fp32 copy).  :func:`abstract_state` gives the state of a tree of
+``device="meta"`` parameters as meta tensors (the registry's cells), and
+:func:`state_logical` its logical axes.
 """
 
 from __future__ import annotations
@@ -62,6 +63,22 @@ def init(params) -> AdamWState:
                                                         device=p.device), params),
                       nu=tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                         device=p.device), params))
+
+
+def abstract_state(abstract_params) -> AdamWState:
+    """:func:`init`'s state as ``device="meta"`` tensors: a 0-d int32 step
+    and fp32 moments of the parameters' shapes."""
+    def moments():
+        return tree_map(lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"),
+                        abstract_params)
+
+    return AdamWState(step=torch.empty((), dtype=torch.int32, device="meta"),
+                      mu=moments(), nu=moments())
+
+
+def state_logical(param_logical) -> AdamWState:
+    """The moments share the parameters' logical axes."""
+    return AdamWState(step=(), mu=param_logical, nu=param_logical)
 
 
 def global_norm(tree) -> torch.Tensor:

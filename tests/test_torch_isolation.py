@@ -71,6 +71,7 @@ PORT_MODULES = {
     "repro_torch.models.recsys.din", "repro_torch.configs.gnn_common",
     "repro_torch.configs.gcn_cora", "repro_torch.configs.graphsage_reddit",
     "repro_torch.configs.schnet", "repro_torch.configs.graphcast", "repro_torch.configs.din",
+    "repro_torch.configs.registry", "repro_torch.configs.sge",
 }
 
 

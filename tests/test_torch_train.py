@@ -460,9 +460,18 @@ def test_non_lm_archs_run_their_smoke(arch, capsys):
 
 
 def test_sge_refused():
-    """The paper's own workload waits for its config (ROADMAP Queue 1 item 14.5)."""
-    with pytest.raises(NotImplementedError, match="item 14.5"):
-        launch.main(["--arch", "sge", "--device", "cpu"])
+    """An unknown id near ``sge`` is a ``KeyError``, as in ``repro``'s registry."""
+    with pytest.raises(KeyError, match="unknown arch 'sge-x'"):
+        launch.main(["--arch", "sge-x", "--device", "cpu"])
+
+
+def test_sge_runs_its_smoke(capsys):
+    """``sge`` runs its config's smoke (an enumeration checked against the
+    sequential oracle) and prints its matches and states."""
+    assert launch.main(["--arch", "sge", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()[-1]
+    assert out == ("[train] sge smoke: {'matches': 39.0, 'states': 72.0, "
+                   "'engine_uploads': 1.0}")
 
 
 def test_training_entry_points_default_to_the_card():
