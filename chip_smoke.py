@@ -312,6 +312,26 @@ Phases, each printed as one JSON line:
    bound and ``scaled_dot_product_attention``.  14d:
    ``repro_torch.launch.train.main(["--arch", "sge"])`` on the card prints
    ``ref_enumerate``'s matches and states.
+15. distributed — the distributed layer and the dry-run; no kernel
+   launches (the launch counts must not change).  15a:
+   ``repro_torch.launch.dryrun.run_cell`` for all 44 cells on both
+   production meshes (meta placeholders): 39 records per mesh, 5 skipped,
+   the card's allocated memory unchanged; it prints each cell's argument
+   bytes per device on each mesh and names the cells that exceed the card's
+   memory.  15b: minitron-8b at phase 12c's width (4 of 32 layers, ~2.8 B
+   bf16 parameters from ``LM_SEED``) through ``checkpoint.store.save`` →
+   ``store.restore`` (no ``like_*``) → ``checkpoint.place`` onto
+   ``make_local_mesh()`` and onto a ``(data=2, model=2)`` mesh of four
+   shards on the card: every shard of the shape
+   ``named_sharding(...).shard_shape`` gives, ``gather`` bit-equal to the
+   saved parameters, the resident bytes equal to the mesh's devices times
+   the dry-run's bytes per device; it prints the seconds of each step.
+   15c: ``distributed.compression.compress_grads`` twice over a bf16 tree
+   of 15b's shapes (``DIST_GRAD_SEED``): payload, scale and residual
+   bit-equal to the CPU's on every leaf of layer 0 and on a row block of
+   ``embed``, and ``DIST_EF_STEPS`` steps of error feedback on ``embed``
+   at full width within ``DIST_EF_TOL`` of the true gradient; it prints
+   the seconds per call and the payload bytes.
 
 Then the ``{"kernels": [...]}`` summary, the card's ``nvidia-smi`` line,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
@@ -508,6 +528,21 @@ REG_PREFILL_BATCH = 1
 REG_PREFILL_SEQ = None  # the cell's 32,768
 REG_K9_HEADS = (0, 13, 31)
 REG_K9_TOL = 2e-2
+# phase 15, the distributed layer and the dry-run.  15a: every registry cell
+# through repro_torch.launch.dryrun.run_cell on both production meshes.  15b:
+# minitron-8b at TRAIN_FULL's width drawn from LM_SEED, saved to DIST_CKPT,
+# restored without like_*, placed onto make_local_mesh() and onto
+# DIST_RESHARD (axes, sizes) laid over the card repeated.  15c: compress_grads
+# twice over a bf16 tree of 15b's shapes drawn from DIST_GRAD_SEED; the CPU
+# recomputes compress on every leaf of layer DIST_CHECK_LAYER and on the first
+# DIST_EMBED_ROWS rows of embed; DIST_EF_STEPS steps of error feedback on
+# embed at full width within DIST_EF_TOL (tests/test_optimizer.py's bound)
+DIST_CKPT = ROOT / "build" / "dist_ckpt"
+DIST_RESHARD = (("data", "model"), (2, 2))
+DIST_GRAD_SEED = 3
+DIST_CHECK_LAYER = 0
+DIST_EMBED_ROWS = 4096
+DIST_EF_STEPS, DIST_EF_TOL = 50, 1e-2
 # phase 7, the dynamic path: benchmarks/bench_incremental.py's regime at the
 # size of PPIS32's largest target (a power-law target of N_T nodes, average
 # degree 4, 4 node labels, one edge label), its pattern rule (a 4-edge
@@ -5704,6 +5739,247 @@ def run_registry_path(device, smi: str) -> tuple:
     return launches, k9_timing_, k9_cases
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the distributed layer and the dry-run
+# ---------------------------------------------------------------------------
+
+def _cuda_s(device, fn):
+    """``fn()`` and its seconds, the card synchronised before and after."""
+    import torch
+
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(device)
+    return out, time.perf_counter() - t0
+
+
+def dist_dryrun(device) -> dict:
+    """15a: every cell through ``dryrun.run_cell`` on both production
+    meshes; the card's allocated memory must not move.  Prints each cell's
+    argument bytes per device on each mesh against the card's memory."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import describe, make_production_mesh
+
+    card = torch.cuda.get_device_properties(device).total_memory
+    meshes = {"single": make_production_mesh(multi_pod=False),
+              "multi": make_production_mesh(multi_pod=True)}
+    torch.cuda.synchronize(device)
+    before = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    rows = []
+    for cell in registry.all_cells():
+        row = dict(cell=cell.name, kind=cell.kind)
+        if cell.build is None:
+            rows.append(dict(row, skip_reason=cell.skip_reason))
+            continue
+        for name, mesh in meshes.items():
+            mem = dryrun.run_cell(cell, mesh)["memory_analysis"]
+            row[f"{name}_arg_bytes_per_device"] = mem["argument_size_in_bytes"]
+            row[f"{name}_donated_bytes_per_device"] = mem["alias_size_in_bytes"]
+        rows.append(row)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    after = torch.cuda.memory_allocated(device)
+    run = [r for r in rows if "skip_reason" not in r]
+    over = {name: [r["cell"] for r in run if r[f"{name}_arg_bytes_per_device"] > card]
+            for name in meshes}
+    out = dict(meshes={k: describe(m) for k, m in meshes.items()}, cells=len(rows),
+               records_per_mesh=len(run), skipped=[r["cell"] for r in rows if "skip_reason" in r],
+               wall_s=wall, card_memory_bytes=card, allocated_before=before,
+               allocated_after=after, over_card=over, rows=rows)
+    if (len(rows), len(run)) != (44, 39) or after != before:
+        raise AssertionError(f"15a: {len(rows)} cells, {len(run)} recorded, allocated "
+                             f"{before} -> {after} bytes")
+    return out
+
+
+def dist_reshard(device, smi: str) -> dict:
+    """15b: minitron-8b at ``TRAIN_FULL``'s width saved, restored without
+    ``like_*`` and placed onto the local mesh and onto ``DIST_RESHARD`` on
+    the card.  Gates: shard shapes, ``gather`` bit-equal, resident bytes =
+    mesh devices × the dry-run's bytes per device."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import gather, place, store
+    from repro_torch.checkpoint.reshard import PlacedLeaf
+    from repro_torch.configs import minitron_8b, overrides
+    from repro_torch.core.engine import Mesh
+    from repro_torch.distributed.shardings import is_logical_leaf, named_sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves, leaves_with_paths, unflatten_like
+
+    cfg = overrides.apply(minitron_8b.CFG, TRAIN_FULL)
+    logical = tf.param_logical(cfg)
+    torch.cuda.empty_cache()
+    params = tf.init_params(cfg, seed=LM_SEED, device=device)
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+    DIST_CKPT.mkdir(parents=True)
+    disk_free = shutil.disk_usage(DIST_CKPT).free
+    t0 = time.perf_counter()
+    store.save(str(DIST_CKPT), 1, params)
+    save_s = time.perf_counter() - t0
+    ckpt_bytes = sum(f.stat().st_size for f in DIST_CKPT.rglob("*") if f.is_file())
+    t0 = time.perf_counter()
+    step, flat, _ = store.restore(str(DIST_CKPT), 1)
+    restore_s = time.perf_counter() - t0
+    host = unflatten_like(params, [flat["['params']" + p] for p, _ in leaves_with_paths(params)])
+    del flat
+    is_placed = lambda x: isinstance(x, PlacedLeaf)  # noqa: E731
+    bad, placements = [], []
+    for label, mesh in (("local", make_local_mesh()),
+                        ("data2_model2", Mesh((device,) * 4, *DIST_RESHARD))):
+        torch.cuda.synchronize(device)
+        before = torch.cuda.memory_allocated(device)
+        placed, place_s = _cuda_s(device, lambda: place(host, logical, mesh))
+        after = torch.cuda.memory_allocated(device)
+        resident = sum(x.nbytes for x in leaves(placed, is_placed))
+        per_device = dryrun.argument_bytes(dryrun.leaf_records((logical,), (params,), mesh))
+        n_shards = sum(len(x.shards) for x in leaves(placed, is_placed))
+        shapes_ok, equal = True, True
+        t0 = time.perf_counter()
+        for (path, want), leaf, log in zip(leaves_with_paths(params), leaves(placed, is_placed),
+                                           leaves(logical, is_logical_leaf)):
+            shard = named_sharding(log, want.shape, mesh).shard_shape(want.shape)
+            shapes_ok &= all(tuple(s.shape) == shard and s.device == device
+                             for s in leaf.shards)
+            got = gather(leaf)
+            equal &= torch.equal(got.view(torch.int16), want.view(torch.int16))
+            del got
+        gather_s = time.perf_counter() - t0
+        row = dict(mesh=label, shape=mesh.shape, devices=[str(d) for d in mesh.devices],
+                   place_s=place_s, gather_check_s=gather_s, shards=n_shards,
+                   resident_bytes=resident, dryrun_bytes_per_device=per_device,
+                   dryrun_resident_bytes=mesh.size * per_device,
+                   allocated_delta_bytes=after - before, shard_shapes_ok=shapes_ok,
+                   gather_bit_equal=equal)
+        placements.append(row)
+        # each shard is an allocation of its own: the allocator rounds each
+        # up, by at most 1 MiB (a block it does not split) plus 512 bytes
+        if not (shapes_ok and equal and resident == mesh.size * per_device
+                and 0 <= after - before - resident <= n_shards * ((1 << 20) + 512)):
+            bad.append(row)
+        del placed
+    shutil.rmtree(DIST_CKPT, ignore_errors=True)
+    out = dict(model=cfg.name, overrides=TRAIN_FULL, params=cfg.param_count(),
+               dtype=str(cfg.dtype), param_bytes=sum(x.numel() * x.element_size()
+                                                     for x in leaves(params)),
+               step=step, ckpt_bytes=ckpt_bytes, disk_free_bytes=disk_free, save_s=save_s,
+               restore_s=restore_s, placements=placements, nvidia_smi=smi)
+    del params, host
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"15b: a placement failed its gates: {bad}")
+    return out
+
+
+def _same_bits(a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (floats compared as int32 words)."""
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def dist_compression(device, smi: str) -> dict:
+    """15c: ``compress_grads`` twice over a bf16 tree of 15b's shapes; the
+    sampled leaves recomputed on the CPU bit for bit; error feedback over
+    ``DIST_EF_STEPS`` steps on ``embed`` at full width."""
+    import torch
+
+    from repro_torch.configs import minitron_8b, overrides
+    from repro_torch.distributed import compression as comp
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.tree import leaves, leaves_with_paths, unflatten_like
+
+    cfg = overrides.apply(minitron_8b.CFG, TRAIN_FULL)
+    shapes = leaves_with_paths(tf.abstract_params(cfg))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(DIST_GRAD_SEED)
+    grads = unflatten_like(tf.abstract_params(cfg), [
+        torch.randn(x.shape, generator=gen, device=device, dtype=torch.bfloat16)
+        for _, x in shapes])
+    err = comp.init_error(grads)
+    torch.cuda.empty_cache()
+    calls = []
+    for _ in range(2):
+        (dec, err), s = _cuda_s(device, lambda: comp.compress_grads(grads, err))
+        calls.append(s)
+        del dec
+    elements = sum(x.numel() for x in leaves(grads))
+    # the sampled leaves: every leaf of one layer and a row block of embed
+    samples = [(f"{p}[{DIST_CHECK_LAYER}]", (DIST_CHECK_LAYER,))
+               for p, _ in shapes if p.startswith("['layers']")]
+    samples.append((f"['embed'][:{DIST_EMBED_ROWS}]", (slice(0, DIST_EMBED_ROWS),)))
+    g_of = dict(leaves_with_paths(grads))
+    e_of = dict(leaves_with_paths(err))
+    cases, t0 = [], time.perf_counter()
+    for name, idx in samples:
+        path = name[:name.rindex("[")]
+        g, e = g_of[path][idx], e_of[path][idx]
+        card = comp.compress(g, e)
+        host = comp.compress(g.cpu(), e.cpu())
+        equal = [_same_bits(a, b) for a, b in zip(card, host)]
+        cases.append(dict(leaf=name, elements=g.numel(), payload_equal=equal[0],
+                          scale_equal=equal[1], residual_equal=equal[2],
+                          scale=float(card[1])))
+    check_s = time.perf_counter() - t0
+    del err, g_of, e_of
+    # error feedback on one full-width leaf: the decoded mean tracks g
+    g_true = grads["embed"]
+    del grads
+    torch.cuda.empty_cache()
+    e = torch.zeros(g_true.shape, dtype=torch.float32, device=device)
+    total = torch.zeros_like(e)
+    t0 = time.perf_counter()
+    for _ in range(DIST_EF_STEPS):
+        q, s, e = comp.compress(g_true, e)
+        total += comp.decompress(q, s)
+    torch.cuda.synchronize(device)
+    ef_s = time.perf_counter() - t0
+    ef_err = float((total / DIST_EF_STEPS - g_true.float()).abs().max())
+    out = dict(leaves=len(shapes), elements=elements, grad_dtype="bfloat16",
+               payload_bytes=elements, scale_bytes=4 * len(shapes),
+               residual_bytes=4 * elements, compress_grads_s=calls,
+               check_cases=cases, check_s=check_s, ef_leaf="['embed']",
+               ef_shape=list(g_true.shape), ef_steps=DIST_EF_STEPS, ef_max_abs_err=ef_err,
+               ef_tol=DIST_EF_TOL, ef_s_per_step=ef_s / DIST_EF_STEPS, nvidia_smi=smi)
+    del e, total, g_true
+    torch.cuda.empty_cache()
+    if not all(c["payload_equal"] and c["scale_equal"] and c["residual_equal"] for c in cases):
+        raise AssertionError(f"15c: the card's compression differs from the CPU's: {cases}")
+    if not ef_err <= DIST_EF_TOL:
+        raise AssertionError(f"15c: error feedback off by {ef_err} > {DIST_EF_TOL}")
+    return out
+
+
+def run_distributed_path(device, smi: str) -> dict:
+    """Phase 15: 15a the dry-run, 15b the checkpoint placed onto two
+    meshes, 15c compression.  No kernel launches: the counts must not move."""
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    counts = ops.launch_counts()
+    emit(dict(phase="dist_dryrun", nvidia_smi=smi, **dist_dryrun(device)))
+    emit(dict(phase="dist_reshard", **dist_reshard(device, smi)))
+    emit(dict(phase="dist_compression", **dist_compression(device, smi)))
+    after = ops.launch_counts()
+    emit(dict(phase="dist_done", launches_before=counts, launches_after=after, nvidia_smi=smi,
+              dist_path_s=time.perf_counter() - t_phase))
+    if after != counts:
+        raise AssertionError(f"phase 15 launched kernels: {counts} -> {after}")
+    return after
+
+
 def main() -> int:
     try:
         import torch
@@ -5810,6 +6086,8 @@ def main() -> int:
     reg_launches, k9_long, reg_cases = run_registry_path(device, smi)
     checks += reg_cases
     timing["flash_attention"].update({f"prefill_32k_{k}": v for k, v in k9_long.items()})
+
+    run_distributed_path(device, smi)
 
     meta = {
         "extend_step": dict(source="src/repro_torch/csrc/extend_step.cu",

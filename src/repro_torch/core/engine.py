@@ -316,22 +316,45 @@ def _canonical_device(d) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh of devices for the worker axis: the port's counterpart of
-    a 1-D ``jax.sharding.Mesh`` with the axis ``"data"``.
+    """A mesh of devices with named axes: the port's counterpart of a
+    ``jax.sharding.Mesh``.
 
-    Shard ``k`` of ``D = len(devices)`` holds workers ``k·V/D`` to
-    ``(k+1)·V/D - 1`` on ``devices[k]``.  Devices may repeat:
-    ``Mesh((cuda:0, cuda:0))`` is two shards on one card, ``Mesh((cpu,) *
-    4)`` four shards on the CPU."""
+    ``devices`` is flat, in row-major order over ``axis_sizes``, whose
+    product is the number of devices; a 1-D mesh needs no sizes and its
+    one axis is ``"data"`` by default.  Devices may repeat: ``Mesh((cuda:0,
+    cuda:0))`` is two shards on one card, ``Mesh((cpu,) * 4, ("data",
+    "model"), (2, 2))`` a 2 × 2 mesh on the CPU.  ``torch.device("meta")``
+    placeholders lay out a production topology that no engine runs on
+    (`repro_torch.launch.mesh`).
+
+    The engine shards the worker axis over the mesh's worker axis
+    (:func:`mesh_worker_axis`): shard ``k`` of ``D = len(shard_devices)``
+    holds workers ``k·V/D`` to ``(k+1)·V/D - 1`` on the first device of
+    the ``k``-th slice along that axis (``repro``'s ``shard_map`` runs it
+    replicated over the other axes)."""
 
     devices: Tuple[torch.device, ...]
     axis_names: Tuple[str, ...] = ("data",)
+    axis_sizes: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         devices = tuple(_canonical_device(d) for d in self.devices)
         if not devices:
             raise ValueError("a Mesh needs at least one device")
+        names = tuple(self.axis_names)
+        if self.axis_sizes is None:
+            if len(names) != 1:
+                raise ValueError(f"a mesh over axes {names} needs axis_sizes")
+            sizes = (len(devices),)
+        else:
+            sizes = tuple(int(n) for n in self.axis_sizes)
+        if len(sizes) != len(names) or len(set(names)) != len(names):
+            raise ValueError(f"axis names {names} do not match axis sizes {sizes}")
+        if min(sizes) < 1 or int(np.prod(sizes)) != len(devices):
+            raise ValueError(f"axis sizes {sizes} do not multiply to {len(devices)} devices")
         object.__setattr__(self, "devices", devices)
+        object.__setattr__(self, "axis_names", names)
+        object.__setattr__(self, "axis_sizes", sizes)
 
     @property
     def size(self) -> int:
@@ -339,12 +362,21 @@ class Mesh:
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def shard_devices(self) -> Tuple[torch.device, ...]:
+        """The device of each worker shard: the first device of each slice
+        along the worker axis, in order."""
+        a = self.axis_names.index(mesh_worker_axis(self))
+        stride = int(np.prod(self.axis_sizes[a + 1:]))
+        return tuple(self.devices[k * stride] for k in range(self.axis_sizes[a]))
 
     @property
     def distinct_devices(self) -> Tuple[torch.device, ...]:
-        """Each device once, in mesh order: where plan arrays are replicated."""
-        return tuple(dict.fromkeys(self.devices))
+        """Each shard's device once, in mesh order: where plan arrays are
+        replicated."""
+        return tuple(dict.fromkeys(self.shard_devices))
 
 
 def mesh_worker_axis(mesh: Mesh) -> str:
@@ -366,7 +398,8 @@ def coerce_mesh(mesh, device=None) -> Optional[Mesh]:
     """``None``, a :class:`Mesh`, or an int ``n``: on a CUDA ``device`` the
     first ``n`` cards (``ValueError`` naming how many exist when there are
     fewer), on the CPU ``n`` shards on the CPU.  A mesh whose first device
-    is not ``device`` raises ``ValueError``; anything else ``TypeError``."""
+    is not ``device``, or of ``meta`` placeholders, raises ``ValueError``;
+    anything else ``TypeError``."""
     if mesh is None:
         return None
     device = resolve_device(device if device is not None
@@ -390,11 +423,13 @@ def coerce_mesh(mesh, device=None) -> Optional[Mesh]:
         raise ValueError(
             f"the mesh's first device {mesh.devices[0]} is not the run's device {device}"
         )
+    if any(d.type == "meta" for d in mesh.devices):
+        raise ValueError(f"mesh{mesh.shape} holds meta placeholders; no engine runs on them")
     return mesh
 
 
 def _check_divisible(cfg: EngineConfig, mesh: Mesh) -> int:
-    n_dev = mesh.size
+    n_dev = len(mesh.shard_devices)
     if cfg.n_workers % n_dev:
         raise ValueError(
             f"n_workers={cfg.n_workers} not divisible by mesh axis "
@@ -414,11 +449,11 @@ def _split(tree, mesh: Mesh, axis: int, replicated: Tuple[str, ...]) -> list:
     mesh's shards, each on its device; the ``replicated`` fields copied to
     every shard."""
     n = next(x for name, x in zip(tree._fields, tree)
-             if name not in replicated).shape[axis] // mesh.size
+             if name not in replicated).shape[axis] // len(mesh.shard_devices)
     return [type(tree)(*(
         _own(x, dev) if name in replicated else _own(x.narrow(axis, k * n, n), dev)
         for name, x in zip(tree._fields, tree)))
-        for k, dev in enumerate(mesh.devices)]
+        for k, dev in enumerate(mesh.shard_devices)]
 
 
 def _join(shards: Sequence, axis: int, first: Tuple[str, ...], any_of: Tuple[str, ...]):
@@ -565,12 +600,12 @@ def make_sharded_engine_fn(cfg: EngineConfig, mesh: Mesh):
     device (``str``) to the plan arrays there, and the state lies on the
     mesh's first device, as the result does.
 
-    ``cfg.n_workers`` must be a multiple of the mesh size (the session
+    ``cfg.n_workers`` must be a multiple of the worker axis's size (the session
     snaps it up; `repro_torch.core.session.Enumerator`)."""
     _check_divisible(cfg, mesh)
 
     def fn(arrays: Dict[str, AnyPlanArrays], state: EngineState) -> EngineState:
-        shards = _sharded_engine_loop(cfg, [arrays[str(d)] for d in mesh.devices],
+        shards = _sharded_engine_loop(cfg, [arrays[str(d)] for d in mesh.shard_devices],
                                       shard_state(state, mesh))
         return gather_state(shards)
 
@@ -718,7 +753,7 @@ def make_partitioned_engine_fn(cfg: EngineConfig, mesh: Optional[Mesh] = None):
 
     def fn(arrays, st: EngineState, spill: SpillState):
         sts, spills = _part_engine_loop(
-            cfg, [arrays[str(d)] for d in mesh.devices],
+            cfg, [arrays[str(d)] for d in mesh.shard_devices],
             shard_state(st, mesh), shard_spill(spill, mesh))
         return gather_state(sts), gather_spill(spills)
 

@@ -46,7 +46,8 @@ queries of a pack or a stream one by one, as ``repro``'s does.
 :class:`~repro_torch.core.engine.Mesh` of devices (an int ``n``: the
 first ``n`` cards, or ``n`` shards on a CPU session), with plan arrays
 replicated once per distinct device (`repro_torch.core.engine`).
-``n_workers`` snaps up to a multiple of the mesh size; results equal the
+``n_workers`` snaps up to a multiple of the mesh's worker-axis size
+(`repro_torch.core.engine.mesh_worker_axis`); results equal the
 unsharded session's, and packs and streams run their queries singly, as
 ``repro``'s mesh sessions do.
 
@@ -654,7 +655,8 @@ class Enumerator:
     int: the first ``n`` cards on a CUDA session, ``n`` shards on a CPU
     one) shards every run's worker stacks over the mesh's devices; the
     mesh's first device is the session's (``device=None`` takes it from a
-    ``Mesh``), and ``n_workers`` snaps up to a multiple of the mesh size.
+    ``Mesh``), and ``n_workers`` snaps up to a multiple of the size of its
+    worker axis.
     Each upload then holds one replica per distinct device of the mesh, and
     ``uploads`` counts an index version's upload in one layout once,
     however many replicas it made.
@@ -700,7 +702,7 @@ class Enumerator:
             self.device = self.mesh.devices[0]  # a card's index filled in
             self._devices = self.mesh.distinct_devices
             # snap up so every shard owns the same number of stacks
-            n_dev = self.mesh.size
+            n_dev = len(self.mesh.shard_devices)
             cfg = dataclasses.replace(cfg, n_workers=-(-cfg.n_workers // n_dev) * n_dev)
         self.config = cfg
         self.variant = variant

@@ -72,6 +72,9 @@ PORT_MODULES = {
     "repro_torch.configs.gcn_cora", "repro_torch.configs.graphsage_reddit",
     "repro_torch.configs.schnet", "repro_torch.configs.graphcast", "repro_torch.configs.din",
     "repro_torch.configs.registry", "repro_torch.configs.sge",
+    "repro_torch.distributed", "repro_torch.distributed.shardings",
+    "repro_torch.distributed.compression", "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun", "repro_torch.checkpoint.reshard", "repro_torch.bench",
 }
 
 
